@@ -1,0 +1,35 @@
+"""scp_tpu_torch — the PyTorch/CUDA port of scp_tpu for one NVIDIA H100.
+
+The JAX package `scp_tpu` is the reference; this package imports nothing
+of it (nor JAX), keeping its own copies of the numpy host modules.  Its
+subpackages mirror scp_tpu's:
+
+  core    — numpy geometry: Morton codes, octree, transforms, quantization.
+  codec   — level slicing, stream container, device rANS, the EHEM codec.
+  models  — torch EHEM: DGCNN trunk, 1-D Swin, multiscale heads.
+  ops     — KNN, and the fused Swin sublayers with their Hopper kernels
+            (CUDA C++ under ops/csrc, built with nvcc at first use).
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`; with
+no card and no such argument they raise instead of falling back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `cuda` unless told otherwise.
+
+    Raises when CUDA is asked for (explicitly or by default) and there is
+    no card — the port never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "scp_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run the plain PyTorch path on the CPU"
+        )
+    return dev

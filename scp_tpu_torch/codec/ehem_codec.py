@@ -1,0 +1,487 @@
+"""EHEM wavefront codec, device-rANS mode (port of
+scp_tpu/codec/ehem_codec.py, mode "rans").
+
+Coding order is level-major: per octree level all group-1 (even) symbols
+in chunk order, then all group-2 (odd) symbols.  Full context chunks ride
+the batch axis of one phase call (the call plan), the quantized CDF rows
+stay on the device and feed the device rANS coder, and contexts and
+positions are derived level by level on the device by the same expansion
+on both sides, so encoder and decoder run the phase programs on identical
+inputs and their CDF rows agree bit for bit.
+
+The stream is stamped with the port's own backend and coding params:
+the port's float math (its kernels, exact top-k) differs from the TPU's,
+so neither package decodes the other's streams; the two are compared at
+the level of logits, CDF rows, rANS bytes and bpp.
+
+The staged and full stream modes, multi-level (3-subtree) coding and
+multi-device coding are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from scp_tpu_torch.codec import rans
+from scp_tpu_torch.codec.slices import LevelSlices
+from scp_tpu_torch.models.ehem import EHEM
+
+BACKEND = "torch-cuda"  # stream stamp of the port (the CPU path stamps torch-cpu)
+
+
+def logits_to_cdf(logits: torch.Tensor) -> torch.Tensor:
+    """Softmax + 16-bit CDF quantization (ehem_codec.py:71-97), in f32.
+
+    round-half-even, then a cummax (a cumsum can step the rounded values
+    down by one) and an index ramp make every row strictly increasing, so
+    every symbol has freq >= 1; mod 2^16.  Returns int32 rows holding the
+    uint16 values."""
+    x = logits.float()
+    x = x - x.amax(dim=-1, keepdim=True)
+    e = torch.exp(x)
+    pdf = e / e.sum(dim=-1, keepdim=True)
+    c = torch.cumsum(pdf, dim=-1)
+    c = c / c[..., -1:]
+    cdf = torch.cat([torch.zeros_like(c[..., :1]), c], dim=-1)
+    lp = cdf.shape[-1]
+    scaled = cdf * torch.tensor(65536.0 - (lp - 1), dtype=torch.float32)
+    q = torch.cummax(torch.round(scaled).to(torch.int32), dim=-1).values
+    q = q + torch.arange(lp, dtype=torch.int32, device=q.device)
+    return q & 0xFFFF
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _call_plan(n: int, csz: int, group: int, small: int, mesh_mult: int = 0):
+    """Static per-level call layout [(row_start, lanes, width)] in chunk
+    order (grouped full chunks, leftover full chunks, one bucketed partial)
+    plus the padded row count — a copy of scp_tpu's _call_plan (:132)."""
+    full = n // csz
+    rem = n - full * csz
+    # a tail past half a chunk rides the last call as one more lane
+    if full and rem * 2 > csz:
+        full += 1
+        rem = 0
+    calls = []
+    s = 0
+    grouped = (full // group) * group
+    for _ in range(0, grouped, group):
+        calls.append((s, group, csz))
+        s += group * csz
+    left = full - grouped
+    if mesh_mult > 1:
+        while left >= mesh_mult:
+            take = (min(left, group) // mesh_mult) * mesh_mult
+            calls.append((s, take, csz))
+            s += take * csz
+            left -= take
+    if left:
+        calls.append((s, left, csz))
+        s += left * csz
+    if rem:
+        # partial tail in the smallest covering pow2 bucket (small..csz)
+        b = small
+        while b < rem:
+            b *= 2
+        b = min(b, csz)
+        calls.append((s, 1, b))
+        s += b
+    return calls, s
+
+
+# ---- device wavefront helpers (integer-exact) -------------------------------
+
+
+def _expand_core(data, pos, occ, n_par: int, n_child: int, child_level: int, unit: int):
+    """Child contexts/positions from the parent buffer + parent occupancies
+    (ehem_codec.py:188).  For child slot j the parent is the number of
+    parents whose inclusive child-count prefix is <= j, its octant the
+    rank-th set bit of the parent's occupancy byte.  Rows past n_child
+    become pad rows (occ 255, rest 0).
+
+    data (b, 4, 3) int32, pos (b, 3) int32, occ (b,) int -> (child, cpos)."""
+    b = data.shape[0]
+    dev = data.device
+    i = torch.arange(b, dtype=torch.int64, device=dev)
+    occ_i = occ.to(torch.int64)
+    b8 = ((occ_i + 1)[:, None] >> torch.arange(8, device=dev)) & 1  # (b, 8)
+    cnt = torch.where(i < n_par, b8.sum(1), 0)
+    cum = torch.cumsum(cnt, 0)
+    parent = torch.searchsorted(cum, i, right=True).clamp(max=b - 1)
+    rank = i - (cum[parent] - cnt[parent])
+    pb8 = b8[parent]
+    bcum = torch.cumsum(pb8, 1)
+    octant = torch.argmax((bcum == (rank + 1)[:, None]).to(torch.int32), dim=1)
+
+    pdata = data[parent].to(torch.int64)  # (b, 4, 3)
+    row2 = torch.stack([pdata[:, 3, 0], pdata[:, 3, 1], occ_i[parent]], dim=1)
+    row3 = torch.stack(
+        [torch.full_like(i, child_level), octant + 1, torch.full_like(i, 255)], dim=1
+    )
+    child = torch.cat([pdata[:, 1:3], row2[:, None], row3[:, None]], dim=1)
+    bits = torch.stack([(octant >> 2) & 1, (octant >> 1) & 1, octant & 1], dim=1)
+    cpos = pos[parent].to(torch.int64) + bits * unit
+    valid = i < n_child
+    # pad rows (0, 0, 255) from scalars: a small device tensor built from a
+    # host list would be a blocking copy on the wavefront's critical path
+    child = torch.where(valid[:, None, None], child, 0)
+    child[:, :, 2] = torch.where(valid[:, None], child[:, :, 2], 255)
+    cpos = torch.where(valid[:, None], cpos, 0)
+    return child.to(torch.int32), cpos.to(torch.int32)
+
+
+def _expand_width(plans, b_cap: int, li: int, sizes) -> int:
+    """Power-of-two work width for the expand at level li -> li+1: it
+    covers every row a later consumer reads (:279)."""
+    need = max(int(sizes[li]), int(plans[li + 1][1]))
+    w = 512
+    while w < need:
+        w *= 2
+    return min(w, b_cap)
+
+
+def _expand_windowed(data, pos, occ, n_par, n_child, child_level, unit, w):
+    """Run _expand_core on the leading w rows and write them back into the
+    persistent buffers, in place (rows past w keep stale values and are
+    never read)."""
+    if w == data.shape[0]:
+        return _expand_core(data, pos, occ, n_par, n_child, child_level, unit)
+    child, cpos = _expand_core(data[:w], pos[:w], occ, n_par, n_child, child_level, unit)
+    data[:w] = child
+    pos[:w] = cpos
+    return data, pos
+
+
+def _interleave(evens, odds, b: int):
+    """(e_cap,) x2 -> (b,) BFS-interleaved."""
+    val = torch.stack([evens, odds], dim=-1).reshape(-1)
+    if val.shape[0] >= b:
+        return val[:b]
+    return torch.nn.functional.pad(val, (0, b - val.shape[0]))
+
+
+def _window(flat, off: int, w: int):
+    """flat[off:off+w], zero-padded past the end."""
+    seg = flat[off : off + w]
+    if seg.shape[0] < w:
+        seg = torch.nn.functional.pad(seg, (0, w - seg.shape[0]))
+    return seg
+
+
+def _expand_parity(data, pos, evens, odds, n_par, n_child, child_level, unit, w):
+    """Expansion fed by the decoder's parity-split symbol buffers."""
+    occ = _interleave(evens, odds, w)
+    return _expand_windowed(data, pos, occ, n_par, n_child, child_level, unit, w)
+
+
+def _expand_stream(data, pos, occ_dev, lvl_off, n_par, n_child, child_level, unit, w):
+    """Expansion fed by the encoder's uploaded occupancy stream."""
+    occ = _window(occ_dev, lvl_off, w)
+    return _expand_windowed(data, pos, occ, n_par, n_child, child_level, unit, w)
+
+
+def _expand_flat(data, pos, flat, n_par, n_child, child_level, unit, w):
+    """Expansion fed by a tiny level's un-split decoded symbols."""
+    occ = _window(flat, 0, w)
+    return _expand_windowed(data, pos, occ, n_par, n_child, child_level, unit, w)
+
+
+def _emit_parity(out, evens, odds, off: int, n: int):
+    """Interleave one level's parity buffers into the BFS output stream
+    (in place: entries [off, off+n) of out)."""
+    out[off : off + n] = _interleave(evens, odds, 2 * evens.shape[0])[:n]
+    return out
+
+
+def _emit_flat(out, flat, off: int, n: int):
+    out[off : off + n] = flat[:n]
+    return out
+
+
+class EHEMCodec:
+    """EHEM wavefront codec over the port's model, device-rANS mode."""
+
+    TINY_UNIFORM_MAX = 512  # levels this small use a fixed uniform prior
+    GROUP_SIZE = 16  # full chunks per grouped phase call (scp_tpu's default)
+
+    def __init__(self, model: EHEM, context_size: int = 8192):
+        self.model = model
+        self.device = model.device
+        self.context_size = context_size
+        self._uni_rows = None
+
+    # ---- static plumbing --------------------------------------------------
+
+    @property
+    def _small_bucket(self) -> int:
+        return max(32, self.context_size // 8)
+
+    def _plan_levels(self, level_sizes):
+        csz, g, small = self.context_size, self.GROUP_SIZE, self._small_bucket
+        plans = []
+        for n in level_sizes:
+            if n <= self.TINY_UNIFORM_MAX:
+                plans.append(([], n))
+            else:
+                plans.append(_call_plan(n, csz, g, small))
+        b_cap = _pow2(max(p[1] for p in plans))
+        e_cap = max(rans.CHUNK, b_cap // 2)
+        return plans, b_cap, e_cap
+
+    def _root_bufs(self, b_cap: int):
+        """Context/position buffers holding the level-1 root; pad rows are
+        level/octant/pos 0, occupancy 255."""
+        data = torch.zeros((b_cap, 4, 3), dtype=torch.int32)
+        data[:, :, 2] = 255
+        data[0, 3, 0] = 1
+        data[0, 3, 1] = 1
+        pos = torch.zeros((b_cap, 3), dtype=torch.int32)
+        return data.to(self.device), pos.to(self.device)
+
+    @staticmethod
+    def _norm_params(mm, max_level: int, angular: bool):
+        """(lo, scale) of the in-program position normalization."""
+        if angular:
+            lo, hi = int(mm[0]), int(mm[1])
+            return lo, np.float32(1.0 / (hi - lo + 1e-9))
+        return 0, np.float32(1.0 / float(2**max_level))
+
+    @staticmethod
+    def _clip_for(level: int, max_level: int, lidar_clip):
+        if lidar_clip is not None and level == max_level:
+            return int(lidar_clip)
+        return 2**31 - 1
+
+    def coding_params(self) -> str:
+        """Stamp of every setting that changes the phase programs' float
+        math; decode refuses a mismatch."""
+        return (
+            f"group={self.GROUP_SIZE};"
+            f"tiny={self.TINY_UNIFORM_MAX};"
+            f"dtype={str(self.model.dtype).replace('torch.', '')};"
+            f"plan=tailmerge;"
+            f"knn=exact;"
+            f"staticknn={1 if self.model.static_knn else 0};"
+            f"kernels={'cuda' if self.device.type == 'cuda' else 'plain'};"
+            f"backend={self.backend}"
+        )
+
+    @property
+    def backend(self) -> str:
+        return BACKEND if self.device.type == "cuda" else "torch-cpu"
+
+    def new_stream_encoder(self):
+        return rans.RansEncoder(self.device)
+
+    @staticmethod
+    def finish_stream(enc):
+        """-> (payload bytes, bit count, n_sym for the header)."""
+        payload = enc.finish()
+        return payload, len(payload) * 8, enc.n_symbols
+
+    def new_stream_decoder(self, payload: bytes):
+        return rans.RansDecoder(payload, self.device)
+
+    def _uniform_rows(self):
+        if self._uni_rows is None:
+            row = logits_to_cdf(torch.zeros((1, 255), device=self.device))
+            self._uni_rows = row.expand(rans.CHUNK, 256).contiguous()
+        return self._uni_rows
+
+    # ---- the shared phase programs ----------------------------------------
+
+    def _phase1(self, data_buf, pos_buf, start, clip, lo, scale, lanes, width):
+        """Slice a call's contexts from the level buffers, quantize the
+        positions (normalize -> u16 -> f32), run phase 1 and quantize its
+        CDF rows: (rows1 (lanes*(width+1)//2, 256), f1, f2)."""
+        lw = lanes * width
+        d = data_buf[start : start + lw].reshape(lanes, width, 4, 3)
+        d = torch.cat([torch.clamp(d[..., :1], max=clip), d[..., 1:]], dim=-1)
+        p = pos_buf[start : start + lw]
+        f32 = torch.float32
+        pf = (p - lo).to(f32) * torch.tensor(scale, dtype=f32)
+        pu = torch.round(torch.clamp(pf, 0.0, 1.0) * torch.tensor(65535.0, dtype=f32))
+        pq = pu.to(torch.int32).to(f32) * torch.tensor(np.float32(1.0 / 65535.0))
+        pq = pq.reshape(lanes, width, 3)
+        logits1, f1, f2 = self.model.decode_phase1(d, pq)
+        rows1 = logits_to_cdf(logits1)
+        return rows1.reshape(lanes * ((width + 1) // 2), 256), f1, f2
+
+    def _phase2(self, f1, f2, occ):
+        rows = logits_to_cdf(self.model.decode_phase2(f1, f2, occ.to(torch.int64), False))
+        return rows.reshape(-1, 256)
+
+    @staticmethod
+    def _cat_pad(parts, n: int):
+        """Concat per-call tensors into the level-flat layout, padded to a
+        rANS chunk multiple."""
+        flat = torch.cat(parts) if len(parts) > 1 else parts[0]
+        tgt = rans.pad_to_chunk(n)
+        if flat.shape[0] > tgt:
+            return flat[:tgt]
+        if flat.shape[0] < tgt:
+            pad = torch.zeros((tgt - flat.shape[0], *flat.shape[1:]), dtype=flat.dtype,
+                              device=flat.device)
+            flat = torch.cat([flat, pad])
+        return flat
+
+    # ---- encode -----------------------------------------------------------
+
+    @torch.no_grad()
+    def encode_to_stream(self, slices: LevelSlices, lidar_clip=None):
+        """Encode a sliced cloud -> (stream_bytes, bit_count, seconds)."""
+        t0 = time.time()
+        enc = self.new_stream_encoder()
+        self._encode_rans_device(enc, slices, lidar_clip)
+        stream, bits, _ = self.finish_stream(enc)
+        return stream, bits, time.time() - t0
+
+    def _encode_rans_device(self, enc, slices: LevelSlices, lidar_clip=None):
+        """Device wavefront encode (ehem_codec.py:888): the occupancy byte
+        stream is uploaded once; contexts and positions are rebuilt level
+        by level on the device by the decoder's own expansion."""
+        sizes = slices.level_sizes
+        max_level = slices.max_level
+        plans, b_cap, e_cap = self._plan_levels(sizes)
+        total = sum(sizes)
+        n_cap = _pow2(total + max(b_cap, rans.CHUNK))
+        occ_host = np.zeros(n_cap, np.uint8)
+        occ_host[:total] = slices.occ_stream.astype(np.uint8)
+        occ_dev = torch.from_numpy(occ_host).to(self.device)
+        data_buf, pos_buf = self._root_bufs(b_cap)
+
+        off = 0
+        for li, n in enumerate(sizes):
+            level = li + 1
+            clip = self._clip_for(level, max_level, lidar_clip)
+            lo, scale = self._norm_params(
+                slices.pos_mm[li] if slices.angular else (0, 0), max_level, slices.angular
+            )
+            if n <= self.TINY_UNIFORM_MAX:
+                seg = occ_dev[off : off + rans.CHUNK].to(torch.int64)
+                ar = torch.arange(rans.CHUNK, device=self.device)
+                syms = torch.where(ar < n, seg, 0)
+                enc.append_group(rans.gather_start_freq(self._uniform_rows(), syms), n)
+            else:
+                calls, _ = plans[li]
+                ne, no = (n + 1) // 2, n // 2
+                sf_e, sf_o = [], []
+                for s, lanes, width in calls:
+                    rows1, f1, f2 = self._phase1(
+                        data_buf, pos_buf, s, clip, lo, scale, lanes, width
+                    )
+                    lw = lanes * width
+                    seg = occ_dev[off + s : off + s + lw].to(torch.int64)
+                    idx = off + s + torch.arange(lw, device=self.device)
+                    seg = torch.where(idx < off + n, seg, 255).reshape(lanes, width)
+                    evens, odds = seg[:, 0::2], seg[:, 1::2]
+                    sf_e.append(rans.gather_start_freq(rows1, evens.reshape(-1)))
+                    rows2 = self._phase2(f1, f2, evens)
+                    sf_o.append(rans.gather_start_freq(rows2, odds.reshape(-1)))
+                enc.append_group(self._cat_pad(sf_e, ne), ne)
+                if no:
+                    enc.append_group(self._cat_pad(sf_o, no), no)
+            if level < max_level:
+                # child cell size 2^(max_level - (level+1) + 1)
+                data_buf, pos_buf = _expand_stream(
+                    data_buf, pos_buf, occ_dev, off, n, sizes[li + 1], level + 1,
+                    1 << (max_level - level), _expand_width(plans, b_cap, li, sizes),
+                )
+            off += n
+
+    # ---- decode -----------------------------------------------------------
+
+    @torch.no_grad()
+    def decode(self, dec, max_level: int, pos_mm, angular: bool, lidar_clip=None,
+               ground_truth=None, level_sizes=None) -> np.ndarray:
+        """Level-wavefront decode -> occupancies 0..254 in BFS order.
+        level_sizes (from the stream header) fix every shape up front;
+        `ground_truth` enables the lossless check."""
+        if level_sizes is None:
+            raise ValueError("rans decode needs the header's per-level node counts")
+        gen = self.decode_steps(dec, max_level, pos_mm, angular, lidar_clip,
+                                ground_truth, level_sizes)
+        while True:
+            try:
+                next(gen)
+            except StopIteration as e:
+                return e.value
+
+    def decode_steps(self, dec, max_level, pos_mm, angular, lidar_clip=None,
+                     ground_truth=None, level_sizes=None):
+        """Generator yielding after each level's dispatch; its return value
+        (StopIteration.value) is the decoded codes (ehem_codec.py:1124)."""
+        sizes = [int(s) for s in level_sizes]
+        if len(sizes) != max_level:
+            raise ValueError(f"{len(sizes)} level sizes for {max_level} levels")
+        plans, b_cap, e_cap = self._plan_levels(sizes)
+        total = sum(sizes)
+        n_cap = _pow2(max(total, 1)) + max(2 * e_cap, rans.CHUNK)
+        out = torch.zeros(n_cap, dtype=torch.uint8, device=self.device)
+        data_buf, pos_buf = self._root_bufs(b_cap)
+
+        off = 0
+        for li, n in enumerate(sizes):
+            level = li + 1
+            clip = self._clip_for(level, max_level, lidar_clip)
+            lo, scale = self._norm_params(pos_mm[li] if angular else (0, 0), max_level,
+                                          angular)
+            if n <= self.TINY_UNIFORM_MAX:
+                flat = dec.decode_group(self._uniform_rows(), n)
+                out = _emit_flat(out, flat, off, n)
+                if level < max_level:
+                    data_buf, pos_buf = _expand_flat(
+                        data_buf, pos_buf, flat, n, sizes[li + 1], level + 1,
+                        1 << (max_level - level), _expand_width(plans, b_cap, li, sizes),
+                    )
+                off += n
+                yield li
+                continue
+
+            calls, _ = plans[li]
+            ne, no = (n + 1) // 2, n // 2
+            p1_outs = []
+            for s, lanes, width in calls:
+                rows1, f1, f2 = self._phase1(data_buf, pos_buf, s, clip, lo, scale,
+                                             lanes, width)
+                p1_outs.append((s, lanes, width, rows1, f1, f2))
+            rows_e = self._cat_pad([o[3] for o in p1_outs], ne)
+            evens_cap = _window(dec.decode_group(rows_e, ne), 0, e_cap)
+
+            rows2 = []
+            for s, lanes, width, _rows1, f1, f2 in p1_outs:
+                hw = (width + 1) // 2
+                seg = _window(evens_cap, s // 2, lanes * hw).to(torch.int64)
+                idx = s // 2 + torch.arange(lanes * hw, device=self.device)
+                occ = torch.where(idx < ne, seg, 255).reshape(lanes, hw)
+                rows2.append(self._phase2(f1, f2, occ))
+            if no:
+                odds_cap = _window(dec.decode_group(self._cat_pad(rows2, no), no), 0, e_cap)
+            else:
+                odds_cap = evens_cap
+
+            out = _emit_parity(out, evens_cap, odds_cap, off, n)
+            if level < max_level:
+                data_buf, pos_buf = _expand_parity(
+                    data_buf, pos_buf, evens_cap, odds_cap, n, sizes[li + 1], level + 1,
+                    1 << (max_level - level), _expand_width(plans, b_cap, li, sizes),
+                )
+            off += n
+            yield li
+
+        codes = out[:total].cpu().numpy().astype(np.int16)
+        if ground_truth is not None:
+            bad = np.nonzero(np.asarray(ground_truth)[:total] != codes)[0]
+            if bad.size:
+                i = int(bad[0])
+                lvl = int(np.searchsorted(np.cumsum(sizes), i, side="right")) + 1
+                raise AssertionError(
+                    f"decode mismatch at node {i} (level {lvl}): "
+                    f"got {int(codes[i])}, want {int(ground_truth[i])}"
+                )
+        return codes

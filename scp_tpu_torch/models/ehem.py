@@ -1,0 +1,131 @@
+"""EHEM entropy model, inference path (port of scp_tpu/models/ehem.py).
+
+  * GeoFeatGenerator -> 256-d per node;
+  * 5-stage self Swin over the context, fused multiscale head
+    (ancient_mlp) -> 256-d;
+  * checkerboard split: even nodes = group 1, odd = group 2;
+  * group 1 logits from prob_pred_mlp1;
+  * group 2 cross-attends (4-stage cross Swin) to keys built from group
+    1's true occupancy embedding (16-d) + 240-d projected features;
+    multiscale output + query -> prob_pred_mlp2;
+  * odd-length inputs padded with occupancy 255.
+
+Decoding is functional as in scp_tpu: phase 1 returns (logits1, feat_a1,
+feat_a2); the caller feeds decoded group-1 occupancies into phase 2.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from scp_tpu_torch import resolve_device
+from scp_tpu_torch.models.dgcnn import GeoFeatGenerator
+from scp_tpu_torch.models.layers import MLP
+from scp_tpu_torch.models.swin1d import SwinEncoder1D
+
+GEO_DIM = 256  # GeoFeatGenerator output width (x 128 + edge 128)
+
+
+class EHEM(nn.Module):
+    def __init__(
+        self,
+        token_num: int = 255,
+        max_level: int = 19,
+        knn_k: int = 20,
+        self_depths: tuple = (4, 4, 4, 4, 2),
+        cross_depths: tuple = (2, 2, 1, 1),
+        embed_dim: int = 256,
+        num_heads: int = 4,
+        window_size: int = 512,
+        mlp_ratio: float = 4.0,
+        static_knn: bool = False,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+    ):
+        super().__init__()
+        self.static_knn = bool(static_knn)
+        self.dtype = dtype
+        self.geo = GeoFeatGenerator(knn_k, max_level, static_knn=static_knn, dtype=dtype)
+        self.swin_self = SwinEncoder1D(GEO_DIM, embed_dim, tuple(self_depths), num_heads,
+                                       window_size, mlp_ratio, cross=False, dtype=dtype)
+        self.swin_cross = SwinEncoder1D(GEO_DIM, embed_dim, tuple(cross_depths), num_heads,
+                                        window_size, mlp_ratio, cross=True, dtype=dtype)
+        ms_self = sum(self.swin_self.stage_widths)
+        ms_cross = sum(self.swin_cross.stage_widths)
+        self.ancient_mlp = MLP(ms_self, [1024, 512, GEO_DIM], dtype=dtype)
+        self.prob_pred_mlp1 = MLP(GEO_DIM, [256, 256, token_num], dtype=dtype)
+        self.pre_occ_mlp = MLP(16, [16, 16, 16], dtype=dtype)
+        self.pre_attn_mlp = MLP(GEO_DIM, [256, 240, 240], dtype=dtype)
+        self.prob_pred_mlp2 = MLP(ms_cross + GEO_DIM, [768, 512, token_num], dtype=dtype)
+        self.requires_grad_(False)  # inference-only port
+        self.to(resolve_device(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.prob_pred_mlp1.dense_0.bias.device
+
+    # ---- shared trunk -----------------------------------------------------
+
+    @staticmethod
+    def _pad_even(data, pos):
+        """Odd context -> append one pad node (occ 255) (ehem.py:92-99)."""
+        if data.shape[1] % 2 == 1:
+            pad = torch.zeros_like(data[:, :1])
+            pad[:, :, :, 2] = 255
+            data = torch.cat([data, pad], dim=1)
+            pos = torch.cat([pos, torch.zeros_like(pos[:, :1])], dim=1)
+            return data, pos, True
+        return data, pos, False
+
+    def _trunk(self, data, pos):
+        """data (B, N, 4, 3) [level, octant, occ]; pos (B, N, 3).
+        Returns (feat_a1, feat_a2): per-group 256-d features."""
+        b, n = data.shape[:2]
+        flat = data.reshape(b, n, -1)[:, :, :-1]  # drop current node's occ
+        feat = self.geo(flat, pos)
+        states = self.swin_self(feat)
+        feat_a = self.ancient_mlp.multiscale(states[1:])
+        return feat_a[:, ::2], feat_a[:, 1::2]
+
+    def _phase2(self, feat_a1, feat_a2, pre_occ):
+        """Group-2 logits given group-1 occupancies (0..254, pad 255)."""
+        key = torch.cat(
+            [
+                self.pre_occ_mlp(self.geo.embed_occ(pre_occ)),
+                self.pre_attn_mlp(feat_a1),
+            ],
+            dim=-1,
+        )  # (B, N/2, 256)
+        states = self.swin_cross(key, query=feat_a2)
+        return self.prob_pred_mlp2.multiscale(states[1:], extra=feat_a2).float()
+
+    # ---- entry points -----------------------------------------------------
+
+    @torch.no_grad()
+    def encode_probs(self, data, pos):
+        """Encode-side forward -> (logits1, logits2)."""
+        data, pos, padded = self._pad_even(data, pos)
+        pre_occ = data[:, ::2, -1, -1]
+        feat_a1, feat_a2 = self._trunk(data, pos)
+        logits1 = self.prob_pred_mlp1(feat_a1).float()
+        logits2 = self._phase2(feat_a1, feat_a2, pre_occ)
+        if padded:
+            logits2 = logits2[:, :-1]
+        return logits1, logits2
+
+    @torch.no_grad()
+    def decode_phase1(self, data, pos):
+        """Wavefront decode phase 1: current occupancies unknown (255)."""
+        data, pos, _ = self._pad_even(data, pos)
+        feat_a1, feat_a2 = self._trunk(data, pos)
+        logits1 = self.prob_pred_mlp1(feat_a1).float()
+        return logits1, feat_a1, feat_a2
+
+    @torch.no_grad()
+    def decode_phase2(self, feat_a1, feat_a2, group1_occ, trim_last: bool):
+        """Phase 2 from cached trunk features + decoded group-1 symbols."""
+        logits2 = self._phase2(feat_a1, feat_a2, group1_occ)
+        if trim_last:
+            logits2 = logits2[:, :-1]
+        return logits2

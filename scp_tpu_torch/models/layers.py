@@ -1,0 +1,122 @@
+"""Shared building blocks of the entropy models (port of
+scp_tpu/models/layers.py).
+
+Weights follow `nn.Linear`'s layout, (out, in), and are stored in the
+model's compute dtype; biases, norms and tables stay float32 and are cast
+where the JAX package casts them (a flax Dense with dtype bf16 casts its
+kernel and bias to bf16; the fused sublayers read the float32 biases).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def sinusoidal_position_table(max_len: int, d_model: int) -> np.ndarray:
+    """Classic sin/cos table (reference attention_model.py:6-22)."""
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div = np.exp(
+        np.arange(0, d_model, 2, dtype=np.float32) * (-np.log(10000.0) / d_model)
+    )
+    pe[:, 0::2] = np.sin(position * div)
+    pe[:, 1::2] = np.cos(position * div)
+    return pe
+
+
+def nearest_up(x: torch.Tensor, factor: int, length: int) -> torch.Tensor:
+    """Nearest-repeat upsample along axis 1 and truncate to `length`
+    (index i -> i // factor; the reference's repeated x2 climb)."""
+    if factor == 1:
+        return x[:, :length]
+    return torch.repeat_interleave(x, factor, dim=1)[:, :length]
+
+
+class Dense(nn.Module):
+    """flax `nn.Dense` with a compute dtype: y = x W^T + b in `dtype`."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight, b)
+
+
+class LayerNorm(nn.Module):
+    """flax `nn.LayerNorm(dtype=float32)`: statistics and output in f32."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)
+
+
+class MLP(nn.Module):
+    """Linear stack with LeakyReLU(0.01) between layers (EHEM's MLP idiom)."""
+
+    def __init__(self, in_features: int, features: Sequence[int],
+                 dtype: torch.dtype = torch.float32, negative_slope: float = 0.01):
+        super().__init__()
+        self.negative_slope = negative_slope
+        self.dtype = dtype
+        self.names = []
+        prev = in_features
+        for i, f in enumerate(features):
+            self.add_module(f"dense_{i}", Dense(prev, f, dtype=dtype))
+            self.names.append(f"dense_{i}")
+            prev = f
+
+    def _layers(self):
+        return [getattr(self, n) for n in self.names]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        layers = self._layers()
+        for i, layer in enumerate(layers):
+            x = layer(x)
+            if i < len(layers) - 1:
+                x = F.leaky_relu(x, self.negative_slope)
+        return x
+
+    def multiscale(self, pyramid: Sequence[torch.Tensor], extra=None) -> torch.Tensor:
+        """The stack applied to concat([up(p) for p in pyramid] + [extra])
+        without materializing the concat: the first Dense is split into
+        row blocks of its kernel, each stage is projected at its own
+        resolution and the projections are upsampled and summed (same
+        function as scp_tpu's MLP.multiscale, layers.py:57)."""
+        full_len = pyramid[0].shape[1]
+        layers = self._layers()
+        d0 = layers[0]
+        kernel = d0.weight  # (out, in): the row blocks of flax's kernel are column blocks here
+        off = 0
+        acc = None
+        for i, p in enumerate(pyramid):
+            c = p.shape[-1]
+            y = F.linear(p.to(self.dtype), kernel[:, off : off + c])
+            off += c
+            y = nearest_up(y, 1 << i, full_len)
+            acc = y if acc is None else acc + y
+        if extra is not None:
+            c = extra.shape[-1]
+            acc = acc + F.linear(extra.to(self.dtype), kernel[:, off : off + c])
+            off += c
+        if off != kernel.shape[1]:
+            raise ValueError(f"multiscale widths {off} != kernel rows {kernel.shape[1]}")
+        x = acc + d0.bias.to(self.dtype)
+        for layer in layers[1:]:
+            x = F.leaky_relu(x, self.negative_slope)
+            x = layer(x)
+        return x

@@ -1,0 +1,157 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each `csrc/*.cu` source becomes one shared library with a plain C
+interface, compiled by `nvcc` alone (no ninja, no PyTorch headers) into
+`scp_tpu_torch/_build/`, named by a hash of the sources and flags so a
+changed source rebuilds and an unchanged one is reused.  The libraries are
+loaded with ctypes; launchers take raw device pointers, sizes and the
+caller's CUDA stream, and return a cudaError_t code that the Python
+wrapper turns into an exception.
+
+Nothing here runs at import time: the first launch (or `build_all()`)
+builds.  A build or launch failure raises — there is no path that quietly
+runs the plain PyTorch version instead.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+SOURCES = ("mlp.cu", "swin_attn.cu")
+FLAGS = ["-shared", "-Xcompiler", "-fPIC", "-arch=sm_90a", "-O3", "-std=c++17"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of every exported launcher, by library
+_SIGNATURES = {
+    "mlp.cu": {
+        "scp_ln_mlp_residual": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+    },
+    "swin_attn.cu": {
+        "scp_attn_self": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 4 + [_F, _F, _P],
+        "scp_attn_cross": [_P] * 10 + [_I] + [_P] * 6 + [_I] * 4 + [_F, _F, _P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+class KernelLaunchError(RuntimeError):
+    pass
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc") or "",
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _digest(src: str) -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name == src or name.endswith(".cuh"):
+            with open(os.path.join(CSRC, name), "rb") as fh:
+                h.update(name.encode() + fh.read())
+    return h.hexdigest()[:16]
+
+
+def lib_path(src: str) -> str:
+    return os.path.join(BUILD_DIR, f"{os.path.splitext(src)[0]}-{_digest(src)}.so")
+
+
+def build_all(sources=SOURCES) -> dict:
+    """Compile every missing library, one nvcc per source, all started
+    together.  Returns {"seconds": wall, "cold": [built], "cached": [reused]}."""
+    t0 = time.time()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    todo = [s for s in sources if not os.path.exists(lib_path(s))]
+    procs = []
+    if todo:
+        nvcc = nvcc_path()
+        for src in todo:
+            out = lib_path(src)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [nvcc, *FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+            procs.append((src, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for src, out, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src} (rc {proc.returncode}):\n{err}")
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise KernelBuildError("\n".join(errors))
+    return {
+        "seconds": time.time() - t0,
+        "cold": todo,
+        "cached": [s for s in sources if s not in todo],
+    }
+
+
+def load(src: str) -> ctypes.CDLL:
+    """The loaded library of `src`, built first if needed."""
+    with _lock:
+        lib = _libs.get(src)
+        if lib is not None:
+            return lib
+        path = lib_path(src)
+        if not os.path.exists(path):
+            build_all((src,))
+        lib = ctypes.CDLL(path)
+        for fn, argtypes in _SIGNATURES[src].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        lib.scp_error_string.argtypes = [ctypes.c_int]
+        lib.scp_error_string.restype = ctypes.c_char_p
+        _libs[src] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        msg = lib.scp_error_string(code).decode()
+        raise KernelLaunchError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda_tensor(name: str, t, dtype, shape=None) -> None:
+    """Device, dtype, contiguity, shape and 16-byte alignment checks made
+    before every launch (the kernels read rows as 16-byte vectors)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")

@@ -1,0 +1,83 @@
+"""Fused LayerNorm + MLP + residual: the Swin MLP sublayer (kernel A).
+
+`ln_mlp_residual` computes  x + W2 act(W1 LN(x) + b1) + b2  and is the
+port's counterpart of scp_tpu/ops/pallas_mlp.py::ln_mlp_residual (Pallas
+kernel `_kernel`, pallas_call in `_fused_impl`).  Weights use nn.Linear's
+layout: w1 (F, C), w2 (C, F), bf16 on the card; LN params and biases f32.
+
+Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
+version (`ln_mlp_residual_plain`, written from pallas_mlp._reference); a
+CUDA tensor launches the hand-written kernel in csrc/mlp.cu or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from scp_tpu_torch.ops import _cuda
+
+ACTS = {"gelu": 1, "leaky": 2}
+
+
+def supported(c: int, f: int) -> bool:
+    """Shapes the kernel tiles (64-wide output tiles, 32-deep stages);
+    the same rule on every device, so CPU and card take the same seam."""
+    return c % 64 == 0 and f % 64 == 0
+
+
+def _act(m: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "gelu":
+        return F.gelu(m)  # exact erf form
+    return F.leaky_relu(m, 0.01)
+
+
+def ln_mlp_residual_plain(x, scale, bias, w1, b1, w2, b2, eps: float, act: str):
+    """Plain version: x (M, C) -> x.dtype.  LN, activation and residual in
+    f32; operands rounded to x.dtype before each product, which then
+    accumulates in f32 (the f32 product of bf16 values is exact)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    h = (xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    h = h.to(x.dtype)
+    m = F.linear(h.float(), w1.float()) + b1.float()
+    m = _act(m, act)
+    y = F.linear(m.to(x.dtype).float(), w2.float()) + b2.float()
+    return (xf + y).to(x.dtype)
+
+
+def ln_mlp_residual(x, scale, bias, w1, b1, w2, b2, eps: float, act: str):
+    """x (M, C) -> x + act(LN(x) w1^T + b1) w2^T + b2 (see module doc)."""
+    if x.device.type == "cpu":
+        return ln_mlp_residual_plain(x, scale, bias, w1, b1, w2, b2, eps, act)
+    m, c = x.shape
+    f = w1.shape[0]
+    if not supported(c, f):
+        raise ValueError(f"ln_mlp_residual kernel: unsupported C={c}, F={f}")
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    for name, t, dt, shape in (
+        ("x", x, torch.bfloat16, (m, c)),
+        ("scale", scale, torch.float32, (c,)),
+        ("bias", bias, torch.float32, (c,)),
+        ("w1", w1, torch.bfloat16, (f, c)),
+        ("b1", b1, torch.float32, (f,)),
+        ("w2", w2, torch.bfloat16, (c, f)),
+        ("b2", b2, torch.float32, (c,)),
+    ):
+        _cuda.check_cuda_tensor(name, t, dt, shape)
+    lib = _cuda.load("mlp.cu")
+    mid = torch.empty((m, f), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x)
+    code = lib.scp_ln_mlp_residual(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), mid.data_ptr(),
+        out.data_ptr(), m, c, f, float(eps), ACTS[act], _cuda.stream_ptr(x),
+    )
+    _cuda.check(lib, code, "ln_mlp_residual")
+    ln_mlp_residual.launches += 1
+    return out
+
+
+ln_mlp_residual.launches = 0

@@ -1,0 +1,169 @@
+"""Fused Swin attention sublayer, x + proj(MHA(LN(x))) (kernels B and C).
+
+`attn_sublayer_self` is the counterpart of
+scp_tpu/ops/pallas_swin.py::attn_sublayer_self (Pallas `_self_kernel`,
+pallas_call in `_self_impl`); `attn_sublayer_cross` of
+`attn_sublayer_cross` (`_cross_kernel`, `_cross_impl`).  Layouts follow
+the JAX package except the weights, which use nn.Linear's (out, in):
+x (BN, W, C) windows; wqkv (3C, C); wq (C, C); wkv (2C, C); wp (C, C);
+rel_bias (H, W, W) f32; mask (n_masks, W, W) f32 additive, window n uses
+mask[n % n_masks].
+
+Dispatch is by the tensor's device: a CPU tensor runs the plain version
+(written from pallas_swin._reference_self / _reference_cross); a CUDA
+tensor launches the kernels of csrc/swin_attn.cu or raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from scp_tpu_torch.ops import _cuda
+
+HEAD_DIM = 64  # the kernel's head dim
+
+
+def supported(n: int, w: int, c: int, heads: int) -> bool:
+    """Pad-free sequences of whole windows at head dim 64 and 64-aligned
+    windows; the same rule on every device."""
+    return (
+        n % w == 0
+        and w % 64 == 0
+        and c % heads == 0
+        and c // heads == HEAD_DIM
+    )
+
+
+def _ln(x32, scale, bias, eps):
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    return (x32 - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def _proj(h, w, b, dtype):
+    """(h w^T + b) with f32 accumulation, rounded to dtype."""
+    return (F.linear(h.float(), w.float()) + b.float()).to(dtype)
+
+
+def _attend_project(xf, q, k, v, rel_bias, mask, wp, bp, heads, dtype):
+    bn, w, c = q.shape
+    hd = c // heads
+
+    def hsplit(t):
+        return t.reshape(bn, w, heads, hd).float()
+
+    s = torch.einsum("nqhd,nkhd->nhqk", hsplit(q), hsplit(k))
+    s = s * torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    s = s + rel_bias[None].float()
+    mb = mask[torch.arange(bn, device=mask.device) % mask.shape[0]]
+    s = s + mb[:, None].float()
+    a = torch.softmax(s, dim=-1).to(dtype)
+    att = torch.einsum("nhqk,nkhd->nqhd", a.float(), hsplit(v)).reshape(bn, w, c)
+    y = F.linear(att.to(dtype).float(), wp.float()) + bp.float()
+    return (xf + y).to(dtype)
+
+
+def attn_sublayer_self_plain(x, scale, bias, wqkv, bqkv, rel_bias, mask, wp, bp,
+                             heads: int, eps: float):
+    c = x.shape[-1]
+    xf = x.float()
+    h = _ln(xf, scale.float(), bias.float(), eps).to(x.dtype)
+    qkv = _proj(h, wqkv, bqkv, x.dtype)
+    q, k, v = qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :]
+    return _attend_project(xf, q, k, v, rel_bias, mask, wp, bp, heads, x.dtype)
+
+
+def attn_sublayer_cross_plain(x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias, mask,
+                              wp, bp, heads: int, eps: float):
+    c = x.shape[-1]
+    xf = x.float()
+    scl, bia = scale.float(), bias.float()
+    hx = _ln(xf, scl, bia, eps).to(x.dtype)
+    hq = _ln(qs.float(), scl, bia, eps).to(x.dtype)
+    q = _proj(hq, wq, bq, x.dtype)
+    kv = _proj(hx, wkv, bkv, x.dtype)
+    return _attend_project(xf, q, kv[..., :c], kv[..., c:], rel_bias, mask, wp, bp,
+                           heads, x.dtype)
+
+
+def _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads):
+    bn, w, c = x.shape
+    if not supported(w, w, c, heads):
+        raise ValueError(f"attention kernel: unsupported W={w}, C={c}, heads={heads}")
+    if mask.ndim != 3 or mask.shape[1:] != (w, w) or mask.shape[0] < 1:
+        raise ValueError(f"mask: expected (n_masks, {w}, {w}), got {tuple(mask.shape)}")
+    for name, t, dt, shape in (
+        ("x", x, torch.bfloat16, (bn, w, c)),
+        ("scale", scale, torch.float32, (c,)),
+        ("bias", bias, torch.float32, (c,)),
+        ("rel_bias", rel_bias, torch.float32, (heads, w, w)),
+        ("mask", mask, torch.float32, None),
+        ("wp", wp, torch.bfloat16, (c, c)),
+        ("bp", bp, torch.float32, (c,)),
+    ):
+        _cuda.check_cuda_tensor(name, t, dt, shape)
+    return bn, w, c
+
+
+def attn_sublayer_self(x, scale, bias, wqkv, bqkv, rel_bias, mask, wp, bp,
+                       heads: int, eps: float):
+    """x (BN, W, C) windows -> x + proj(window_attn(LN(x)))."""
+    if x.device.type == "cpu":
+        return attn_sublayer_self_plain(x, scale, bias, wqkv, bqkv, rel_bias, mask,
+                                        wp, bp, heads, eps)
+    bn, w, c = _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads)
+    _cuda.check_cuda_tensor("wqkv", wqkv, torch.bfloat16, (3 * c, c))
+    _cuda.check_cuda_tensor("bqkv", bqkv, torch.float32, (3 * c,))
+    lib = _cuda.load("swin_attn.cu")
+    dev = x.device
+    qkv = torch.empty((bn * w, 3 * c), dtype=torch.bfloat16, device=dev)
+    att = torch.empty((bn * w, c), dtype=torch.bfloat16, device=dev)
+    out = torch.empty_like(x)
+    code = lib.scp_attn_self(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), wqkv.data_ptr(),
+        bqkv.data_ptr(), rel_bias.data_ptr(), mask.data_ptr(), mask.shape[0],
+        wp.data_ptr(), bp.data_ptr(), qkv.data_ptr(), att.data_ptr(),
+        out.data_ptr(), bn, w, c, heads, float(eps), 1.0 / math.sqrt(c // heads),
+        _cuda.stream_ptr(x),
+    )
+    _cuda.check(lib, code, "attn_sublayer_self")
+    attn_sublayer_self.launches += 1
+    return out
+
+
+def attn_sublayer_cross(x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias, mask, wp, bp,
+                        heads: int, eps: float):
+    """Cross sublayer: Q from LN(qs), K|V from LN(x); residual x."""
+    if x.device.type == "cpu":
+        return attn_sublayer_cross_plain(x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias,
+                                         mask, wp, bp, heads, eps)
+    bn, w, c = _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads)
+    _cuda.check_cuda_tensor("qs", qs, torch.bfloat16, (bn, w, c))
+    _cuda.check_cuda_tensor("wq", wq, torch.bfloat16, (c, c))
+    _cuda.check_cuda_tensor("bq", bq, torch.float32, (c,))
+    _cuda.check_cuda_tensor("wkv", wkv, torch.bfloat16, (2 * c, c))
+    _cuda.check_cuda_tensor("bkv", bkv, torch.float32, (2 * c,))
+    lib = _cuda.load("swin_attn.cu")
+    dev = x.device
+    qbuf = torch.empty((bn * w, c), dtype=torch.bfloat16, device=dev)
+    kvbuf = torch.empty((bn * w, 2 * c), dtype=torch.bfloat16, device=dev)
+    att = torch.empty((bn * w, c), dtype=torch.bfloat16, device=dev)
+    out = torch.empty_like(x)
+    code = lib.scp_attn_cross(
+        x.data_ptr(), qs.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        wq.data_ptr(), bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(),
+        rel_bias.data_ptr(), mask.data_ptr(), mask.shape[0], wp.data_ptr(),
+        bp.data_ptr(), qbuf.data_ptr(), kvbuf.data_ptr(), att.data_ptr(),
+        out.data_ptr(), bn, w, c, heads, float(eps), 1.0 / math.sqrt(c // heads),
+        _cuda.stream_ptr(x),
+    )
+    _cuda.check(lib, code, "attn_sublayer_cross")
+    attn_sublayer_cross.launches += 1
+    return out
+
+
+attn_sublayer_self.launches = 0
+attn_sublayer_cross.launches = 0

@@ -1,0 +1,122 @@
+"""The port stands alone: with JAX, flax, optax, orbax and scp_tpu shut
+out of the import system, every module of scp_tpu_torch and chip_smoke
+imports and a small CPU encode/decode runs; chip_smoke.py refuses to
+report success without a card; no source builds through
+torch.utils.cpp_extension (which needs ninja and PyTorch's headers)."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "scp_tpu_torch")
+
+_BLOCKED_RUN = r'''
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "scp_tpu")
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"blocked import: {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+import numpy as np
+import torch
+import scp_tpu_torch
+
+mods = [m.name for m in pkgutil.walk_packages(scp_tpu_torch.__path__, "scp_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+importlib.import_module("chip_smoke")
+
+from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+from scp_tpu_torch.codec.slices import split_levels
+from scp_tpu_torch.core.preprocess import preprocess_points
+from scp_tpu_torch.models.ehem import EHEM
+
+torch.manual_seed(0)
+model = EHEM(self_depths=(2, 2), cross_depths=(1,), embed_dim=64, num_heads=4,
+             window_size=64, mlp_ratio=2.0, knn_k=4, static_knn=True, device="cpu")
+with torch.no_grad():
+    for p in model.parameters():
+        p.normal_(0.0, 0.05)
+rng = np.random.default_rng(0)
+n = 1200
+r, az, el = rng.uniform(2, 60, n), rng.uniform(0, 2 * np.pi, n), rng.uniform(-0.4, 0.2, n)
+pts = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az), r * np.sin(el)], 1)
+sl = split_levels(preprocess_points(pts, system="spher", qs=60.0 / 255).context, angular=True)
+codec = EHEMCodec(model, context_size=128)
+stream, bits, _ = codec.encode_to_stream(sl)
+codes = codec.decode(codec.new_stream_decoder(stream), sl.max_level, np.array(sl.pos_mm),
+                     angular=True, ground_truth=sl.occ_stream, level_sizes=sl.level_sizes)
+assert (codes == sl.occ_stream).all()
+assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
+print("ISOLATED_OK", len(mods), bits)
+'''
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PORT):
+        out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu", ".cuh"))]
+    return out
+
+
+def test_port_imports_and_codes_with_jax_shut_out():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ISOLATED_OK" in proc.stdout
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|scp_tpu)\b(?!_torch)",
+                     re.M)
+    hits = [p for p in _port_sources() if p.endswith(".py") and pat.search(open(p).read())]
+    assert hits == []
+
+
+def test_no_source_builds_through_cpp_extension():
+    hits = [p for p in _port_sources()
+            if "cpp_extension" in open(p).read() or "torch/extension.h" in open(p).read()]
+    assert hits == []
+
+
+def _last_line(text):
+    lines = [ln for ln in text.strip().splitlines() if ln.strip()]
+    return lines[-1] if lines else ""
+
+
+def test_chip_smoke_fails_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py is expected to pass here")
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in _last_line(proc.stdout)
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory that holds chip_smoke.py and nothing else of the
+    repo, the script cannot import the port (or finds no card) and fails."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in _last_line(proc.stdout)
