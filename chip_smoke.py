@@ -9,12 +9,22 @@ Phases, each printed as it ends (any failure exits non-zero):
      attention sublayer) against their plain PyTorch versions on the card,
      at the main path's widths (C=256, W=512, 4 heads, F=1024) and at the
      token counts of the L16 cloud's largest level, with the EHEM
-     checkpoint's own block weights; times of kernel and plain version;
+     checkpoint's own block weights; kernel D (fused KNN distance +
+     top-k) on that level's quantized positions (15, 8192, 3) and on
+     random (15, 8192, 192) features, kernel E (window attention) at its
+     on-path shape (1, 4, 512, 64) and at (240, 4, 512, 64); times of
+     kernel, plain version and, where one PyTorch call computes the same
+     function, that call;
   3. the full-width EHEM from checkpoints/ehem_synth_f16_sknn.npz (static
      KNN on), loaded through scp_tpu_torch.weights;
   4. one encode and one decode of the 120,000-point synthetic KITTI-like
      cloud at lidar level 16 (seed 0), with the lossless check; the kernel
-     launch counts of that run show the path went through the kernels.
+     launch counts of that run show the path went through the kernels;
+  5. the same roundtrip with the fused-kernel switches on (pallas_knn and
+     pallas_attn, scp_tpu's SCP_PALLAS_KNN / SCP_PALLAS_ATTN): kernel D
+     builds the position graphs of N >= 2048 rows, kernel E the attention
+     of the padded deep Swin stages; lossless, and its bpp within 0.1% of
+     phase 4's.
 
 The second-to-last line is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX or scp_tpu.
@@ -37,6 +47,12 @@ CKPT = os.path.join(HERE, "checkpoints", "ehem_synth_f16_sknn.npz")
 N_POINTS = 120_000
 LIDAR_LEVEL = 16
 TOL = 3e-2  # atol = rtol: bf16 outputs (8-bit mantissa), kernel vs plain summation order
+# kernel D vs its plain version: the index lists may differ only where the
+# two sum a dot product in other orders and a near tie swaps; the exact
+# (f64) distances of both picks agree within KNN_RTOL on every row
+KNN_SAME_ROWS = 0.999
+KNN_RTOL = 1e-5
+BPP_RTOL = 1e-3  # phase 5 vs phase 4: f32 instead of bf16 KNN scores
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -86,15 +102,57 @@ def check_close(name, got, want):
     return max_err
 
 
+def check_knn(name, got, again, want, feats):
+    """Kernel D's picks against the plain version's; returns the largest
+    difference of their sorted f64 distances."""
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches on the same input differ")
+    same = float((got == want).all(-1).double().mean())
+    f = feats.double()
+    max_err, bad = 0.0, 0
+    for b in range(f.shape[0]):
+        def dists(idx):
+            return ((f[b][idx[b]] - f[b][:, None]) ** 2).sum(-1).sort(-1).values
+
+        dg, dw = dists(got), dists(want)
+        err = (dg - dw).abs()
+        max_err = max(max_err, float(err.max()))
+        bad += int((err > KNN_RTOL * dw).sum())
+    say(f"  {name}: identical index lists on {same:.6f} of rows (need >= {KNN_SAME_ROWS}), "
+        f"distances over rtol {KNN_RTOL}: {bad}, max abs distance difference {max_err:.6g}")
+    if same < KNN_SAME_ROWS or bad:
+        raise AssertionError(f"{name}: kernel picks disagree with the plain version")
+    return max_err
+
+
+def level_positions(slices, lanes: int, width: int):
+    """The positions the largest level's (lanes, width) call gives the
+    position graph: pad rows at 0, normalized and quantized to 16 bits as
+    EHEMCodec._phase1 does, in bf16 as the model casts them."""
+    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+
+    li = int(np.argmax(slices.level_sizes))
+    pos = np.zeros((lanes * width, 3), np.int64)
+    n = min(len(slices.pos_int[li]), lanes * width)
+    pos[:n] = slices.pos_int[li][:n]
+    lo, scale = EHEMCodec._norm_params(slices.pos_mm[li], slices.max_level, True)
+    f32 = torch.float32
+    pf = (torch.from_numpy(pos) - lo).to(f32) * torch.tensor(scale, dtype=f32)
+    pu = torch.round(torch.clamp(pf, 0.0, 1.0) * torch.tensor(65535.0, dtype=f32))
+    pq = pu.to(torch.int32).to(f32) * torch.tensor(np.float32(1.0 / 65535.0))
+    return pq.reshape(lanes, width, 3).to("cuda", torch.bfloat16)
+
+
 def bound_ms(n_bytes: float, flops: float):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(model, gen):
+def kernel_phase(model, gen, slices):
     """Phase 2: each kernel against its plain version; returns table rows."""
     from scp_tpu_torch.models.swin1d import _mask_tensor
+    from scp_tpu_torch.ops import knn, knn_topk, window_attn
     from scp_tpu_torch.ops import mlp as mlp_ops
     from scp_tpu_torch.ops import swin_attn
 
@@ -176,7 +234,106 @@ def kernel_phase(model, gen):
         replaces="scp_tpu/ops/pallas_swin.py:96", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None, tokens=m_cross,
     )
+
+    # ---- D: fused KNN distance + top-k, k = 20: the L16 position graph of
+    # the (15, 8192) call, then the dynamic graph's widest features
+    k = 20
+    d_shapes = {}
+    for tag, feats in (
+        ("positions", level_positions(slices, lanes, width)),
+        ("c192", rand(lanes, width, 192)),
+    ):
+        got = knn_topk.knn_topk(feats, k)
+        again = knn_topk.knn_topk(feats, k)
+        want = knn_topk.knn_topk_plain(feats, k)
+        torch.cuda.synchronize()
+        b_, n_, c_ = feats.shape
+        err = check_knn(f"D knn_topk {tuple(feats.shape)} {tag}", got, again, want, feats)
+        b, by = bound_ms(b_ * n_ * c_ * 2 + b_ * n_ * k * 8, 2 * b_ * n_ * n_ * c_)
+        d_shapes[tag] = dict(
+            err=err, ms=cuda_time_ms(lambda: knn_topk.knn_topk(feats, k), 10),
+            plain=cuda_time_ms(lambda: knn_topk.knn_topk_plain(feats, k), 3),
+            main=cuda_time_ms(lambda: knn.knn_indices(feats, k), 3), bound=b, by=by,
+        )
+    dp, dw = d_shapes["positions"], d_shapes["c192"]
+    rows["D"] = dict(
+        name="knn_topk", route="cuda", source="scp_tpu_torch/ops/csrc/knn_topk.cu",
+        replaces="scp_tpu/ops/pallas_knn.py:59",
+        max_abs_err=max(dp["err"], dw["err"]), ms=dp["ms"], plain_ms=dp["plain"],
+        bound_ms=dp["bound"], bound_by=dp["by"], library_ms=None,
+        library_note="no one PyTorch call computes distance + top-k (torch.cdist, then "
+                     "torch.topk, is two)",
+        shape=[lanes, width, 3], main_path_knn_ms=dp["main"],
+        c192_shape=[lanes, width, 192], c192_ms=dw["ms"], c192_plain_ms=dw["plain"],
+        c192_bound_ms=dw["bound"], c192_bound_by=dw["by"], c192_main_path_knn_ms=dw["main"],
+    )
+
+    # ---- E: window attention at its on-path shape (one padded window of
+    # the 256-token stage, unshifted) and at B's token count, shifted
+    blk = model.swin_self.stage_3.block_0
+    bias = blk.attn.rel_bias()
+    e_shapes = {}
+    hd = c // h
+    for tag, bn, mask in (
+        ("on_path", 1, _mask_tensor(w, w, 0, dev)),
+        ("bn240", m_self // w, _mask_tensor(2 * w, w, w // 2, dev)),
+    ):
+        q, k_, v = (rand(bn, h, w, hd) for _ in range(3))
+        args = (q, k_, v, bias, mask, hd ** -0.5)
+        got = window_attn.window_attention(*args)
+        torch.cuda.synchronize()
+        err = check_close(f"E window_attention ({bn}, {h}, {w}, {hd}), {mask.shape[0]} masks",
+                          got, window_attn.window_attention_plain(*args))
+        mask_b = mask[torch.arange(bn, device=dev) % mask.shape[0]]
+        sdpa_mask = (bias[None] + mask_b[:, None]).to(torch.bfloat16)
+        nb = 4 * bn * h * w * hd * 2 + h * w * w * 4 + mask.numel() * 4
+        b, by = bound_ms(nb, 4 * bn * h * w * w * hd)
+        e_shapes[tag] = dict(
+            err=err, ms=cuda_time_ms(lambda: window_attn.window_attention(*args), 10),
+            plain=cuda_time_ms(lambda: window_attn.window_attention_plain(*args), 3),
+            lib=cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k_, v, attn_mask=sdpa_mask, scale=hd ** -0.5), 10),
+            bound=b, by=by, tokens=bn * w,
+        )
+        del sdpa_mask
+    ep, eb = e_shapes["on_path"], e_shapes["bn240"]
+    rows["E"] = dict(
+        name="window_attention", route="cuda", source="scp_tpu_torch/ops/csrc/window_attn.cu",
+        replaces="scp_tpu/ops/pallas_attn.py:41", max_abs_err=max(ep["err"], eb["err"]),
+        ms=ep["ms"], plain_ms=ep["plain"], bound_ms=ep["bound"], bound_by=ep["by"],
+        library_ms=ep["lib"], library_note="scaled_dot_product_attention with the bf16 "
+        "bias + mask as attn_mask", shape=[1, h, w, hd], tokens=ep["tokens"],
+        bn240_shape=[m_self // w, h, w, hd], bn240_ms=eb["ms"], bn240_plain_ms=eb["plain"],
+        bn240_bound_ms=eb["bound"], bn240_bound_by=eb["by"], bn240_library_ms=eb["lib"],
+    )
     return rows
+
+
+def roundtrip(codec, slices, counted):
+    """One cold encode and one cold decode with the lossless check; the
+    kernel counts are set to 0 just before and read just after."""
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    stream, bits, _ = codec.encode_to_stream(slices)
+    torch.cuda.synchronize()
+    t_enc = time.time() - t0
+    t0 = time.time()
+    dec = codec.new_stream_decoder(stream, codec.coding_params())
+    codes = codec.decode(dec, slices.max_level, np.array(slices.pos_mm, np.int64),
+                         angular=True, ground_truth=slices.occ_stream,
+                         level_sizes=slices.level_sizes)
+    torch.cuda.synchronize()
+    t_dec = time.time() - t0
+    launches = [fn.launches for fn in counted]
+    if codes.shape != slices.occ_stream.shape or not (codes == slices.occ_stream).all():
+        raise AssertionError("decode is not lossless")
+    bpp = bits / N_POINTS
+    if not math.isfinite(bpp) or bits <= 0:
+        raise AssertionError(f"bad bit count {bits}")
+    return dict(bpp=bpp, bytes=len(stream), encode_s=t_enc, decode_s=t_dec,
+                launches=launches)
 
 
 def main() -> int:
@@ -196,7 +353,7 @@ def main() -> int:
     from scp_tpu_torch.codec.slices import split_levels
     from scp_tpu_torch.core.preprocess import kitti_qs, preprocess_points
     from scp_tpu_torch.models.ehem import EHEM
-    from scp_tpu_torch.ops import _cuda
+    from scp_tpu_torch.ops import _cuda, knn_topk, window_attn
     from scp_tpu_torch.ops import mlp as mlp_ops
     from scp_tpu_torch.ops import swin_attn
     from scp_tpu_torch.weights import load_into
@@ -214,54 +371,63 @@ def main() -> int:
     say(f"phase 3 model: full-width EHEM from {os.path.basename(CKPT)} "
         f"(static KNN on) in {time.time() - t0:.2f} s")
 
-    # ---- 2. kernels vs plain
-    t0 = time.time()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    rows = kernel_phase(model, gen)
-    say(f"phase 2 kernels vs plain: {time.time() - t0:.2f} s")
-    for k, r in rows.items():
-        say(f"  {k} {r['name']}: {r['ms']:.4f} ms/launch at {r['tokens']} tokens, "
-            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-
-    # ---- 4. the main path: one encode, one decode
+    # the L16 cloud (phase 2 reads its positions, phases 4 and 5 code it)
     t0 = time.time()
     pts = synth_kitti(np.random.default_rng(0), N_POINTS)
     res = preprocess_points(pts, system="spher", qs=kitti_qs(LIDAR_LEVEL))
     slices = split_levels(res.context, angular=True)
     n_nodes = int(slices.occ_stream.shape[0])
-    say(f"phase 4 preprocess: {time.time() - t0:.2f} s, {n_nodes} nodes, "
-        f"{slices.max_level} levels")
-    codec = EHEMCodec(model, context_size=8192)
-    counted = (mlp_ops.ln_mlp_residual, swin_attn.attn_sublayer_self,
-               swin_attn.attn_sublayer_cross)
-    for fn in counted:
-        fn.launches = 0
-    torch.cuda.synchronize()
+    say(f"preprocess: {time.time() - t0:.2f} s, {n_nodes} nodes, {slices.max_level} levels")
+
+    # ---- 2. kernels vs plain
     t0 = time.time()
-    stream, bits, _ = codec.encode_to_stream(slices)
-    torch.cuda.synchronize()
-    t_enc = time.time() - t0
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = kernel_phase(model, gen, slices)
+    say(f"phase 2 kernels vs plain: {time.time() - t0:.2f} s")
+    for k, r in rows.items():
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        say(f"  {k} {r['name']}: {r['ms']:.4f} ms/launch at {r.get('shape', r.get('tokens'))}, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"library {lib}")
+    d, e = rows["D"], rows["E"]
+    say(f"  D main-path KNN (ops/knn.knn_indices) {d['main_path_knn_ms']:.4f} ms; at C=192: "
+        f"kernel {d['c192_ms']:.4f}, plain {d['c192_plain_ms']:.4f}, main-path KNN "
+        f"{d['c192_main_path_knn_ms']:.4f}, bound {d['c192_bound_ms']:.4f} ms")
+    say(f"  E at {e['bn240_shape']}: kernel {e['bn240_ms']:.4f}, plain {e['bn240_plain_ms']:.4f}, "
+        f"SDPA {e['bn240_library_ms']:.4f}, bound {e['bn240_bound_ms']:.4f} ms")
+
+    # ---- 4. the main path: one encode, one decode
+    counted = {"A": mlp_ops.ln_mlp_residual, "B": swin_attn.attn_sublayer_self,
+               "C": swin_attn.attn_sublayer_cross, "D": knn_topk.knn_topk,
+               "E": window_attn.window_attention}
+    p4 = roundtrip(EHEMCodec(model, context_size=8192), slices, counted.values())
+    say(f"phase 4 roundtrip: lossless, bpp={p4['bpp']:.4f}, nodes={n_nodes}, "
+        f"bytes={p4['bytes']}, encode {p4['encode_s']:.3f} s, decode {p4['decode_s']:.3f} s, "
+        f"kernel launches A/B/C/D/E = {p4['launches']}")
+    if p4["launches"][3] or p4["launches"][4]:
+        raise AssertionError("kernels D and E launched with their switches off")
+
+    # ---- 5. the fused-kernel configuration (pallas_knn, pallas_attn)
     t0 = time.time()
-    dec = codec.new_stream_decoder(stream)
-    codes = codec.decode(dec, slices.max_level, np.array(slices.pos_mm, np.int64),
-                         angular=True, ground_truth=slices.occ_stream,
-                         level_sizes=slices.level_sizes)
-    torch.cuda.synchronize()
-    t_dec = time.time() - t0
-    launches = [fn.launches for fn in counted]
-    if codes.shape != slices.occ_stream.shape or not (codes == slices.occ_stream).all():
-        raise AssertionError("decode is not lossless")
-    bpp = bits / N_POINTS
-    if not math.isfinite(bpp) or bits <= 0:
-        raise AssertionError(f"bad bit count {bits}")
-    say(f"phase 4 roundtrip: lossless, bpp={bpp:.4f}, nodes={n_nodes}, "
-        f"bytes={len(stream)}, encode {t_enc:.3f} s, decode {t_dec:.3f} s, "
-        f"kernel launches A/B/C = {launches}")
-    for (k, r), n in zip(rows.items(), launches):
+    model5 = EHEM(static_knn=True, pallas_knn=True, pallas_attn=True, dtype=torch.bfloat16,
+                  device="cuda")
+    load_into(model5, CKPT)
+    codec5 = EHEMCodec(model5, context_size=8192)
+    say(f"phase 5 model: {time.time() - t0:.2f} s, stamp {codec5.coding_params()}")
+    p5 = roundtrip(codec5, slices, counted.values())
+    say(f"phase 5 roundtrip: lossless, bpp={p5['bpp']:.4f}, bytes={p5['bytes']}, "
+        f"encode {p5['encode_s']:.3f} s, decode {p5['decode_s']:.3f} s, "
+        f"kernel launches A/B/C/D/E = {p5['launches']}")
+    if abs(p5["bpp"] - p4["bpp"]) > BPP_RTOL * p4["bpp"]:
+        raise AssertionError(f"phase 5 bpp {p5['bpp']} is not within {BPP_RTOL} of phase 4's")
+
+    # A, B, C count from phase 4 (the default path), D and E from phase 5
+    for k, phase in (("A", p4), ("B", p4), ("C", p4), ("D", p5), ("E", p5)):
+        n = phase["launches"][list(counted).index(k)]
         if n == 0:
-            raise AssertionError(f"kernel {k} ({r['name']}) never launched on the main path")
-        r["launches"] = n
+            raise AssertionError(f"kernel {k} ({rows[k]['name']}) never launched on its path")
+        rows[k]["launches"] = n
     say(f"total wall {time.time() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

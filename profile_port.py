@@ -1,12 +1,16 @@
 """Where the time of the port's main path goes, on the card.
 
     python3 profile_port.py [--out chiprun_out/profile_port.json]
+    python3 profile_port.py --pallas
 
 Runs chip_smoke.py's L16 roundtrip (the 120,000-point cloud, seed 0, the
 full-width EHEM from ehem_synth_f16_sknn.npz): one cold pass, two warm
 passes timed on the host clock, then one warm pass under torch.profiler.
 The profiled pass wraps the codec's layers in named ranges (phase 1,
-phase 2, the rANS chunks, the expansion) and sums device time by kernel.
+phase 2, the rANS chunks, the expansion, the KNN) and sums device time by
+kernel.  --pallas profiles chip_smoke.py's phase-5 configuration instead
+(pallas_knn and pallas_attn on: kernels D and E), with the same ranges,
+and by default writes profile_port_pallas.json beside the default file.
 Prints a summary and writes it as JSON to --out.
 """
 
@@ -42,7 +46,8 @@ def roundtrip(codec, slices):
     torch.cuda.synchronize()
     t_enc = time.time() - t0
     t0 = time.time()
-    codes = codec.decode(codec.new_stream_decoder(stream), slices.max_level,
+    codes = codec.decode(codec.new_stream_decoder(stream, codec.coding_params()),
+                         slices.max_level,
                          np.array(slices.pos_mm, np.int64), angular=True,
                          ground_truth=slices.occ_stream, level_sizes=slices.level_sizes)
     torch.cuda.synchronize()
@@ -53,8 +58,13 @@ def roundtrip(codec, slices):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--pallas", action="store_true",
+                    help="pallas_knn and pallas_attn on (chip_smoke.py's phase 5)")
     ap.add_argument("--out", default=os.path.join("chiprun_out", "profile_port.json"))
     args = ap.parse_args()
+    out_path = args.out
+    if args.pallas and out_path == ap.get_default("out"):
+        out_path = out_path.replace(".json", "_pallas.json")
     if not torch.cuda.is_available():
         raise SystemExit("profile_port.py measures the card; no CUDA device available")
 
@@ -68,7 +78,8 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
-    model = load_into(EHEM(static_knn=True, dtype=torch.bfloat16, device="cuda"), CKPT)
+    model = load_into(EHEM(static_knn=True, pallas_knn=args.pallas, pallas_attn=args.pallas,
+                           dtype=torch.bfloat16, device="cuda"), CKPT)
     pts = synth_kitti(np.random.default_rng(0), N_POINTS)
     slices = split_levels(
         preprocess_points(pts, system="spher", qs=kitti_qs(LIDAR_LEVEL)).context, angular=True
@@ -115,9 +126,11 @@ def main():
     # idle share against the unprofiled warm wall (the profiler slows the host)
     warm_ms = 1e3 * sum(e + d for e, d, _ in warm) / len(warm)
     ours = {k: sum(ms for n, ms, _ in kernels if k in n)
-            for k in ("scp::gemm_bf16", "scp::window_attn_bf16")}
+            for k in ("scp::gemm_bf16", "scp::window_attn_bf16", "knn_topk", "row_sqnorm",
+                      "window_attn_heads")}
     out = {
         "card": card,
+        "config": codec.coding_params(),
         "points": N_POINTS,
         "nodes": int(slices.occ_stream.shape[0]),
         "bpp": cold[2] / N_POINTS,
@@ -130,10 +143,11 @@ def main():
         "ranges": ranges,
         "top_kernels": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in kernels[:25]],
     }
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as fh:
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as fh:
         json.dump(out, fh, indent=1)
     print(card)
+    print(out["config"])
     print(f"bpp {out['bpp']:.4f}; cold enc {cold[0]:.3f} s dec {cold[1]:.3f} s; warm "
           + ", ".join(f"enc {e:.3f} s dec {d:.3f} s" for e, d, _ in warm))
     print(f"profiled pass: wall {wall_ms:.1f} ms, kernels {device_ms:.1f} ms; warm wall "

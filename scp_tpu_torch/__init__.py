@@ -7,7 +7,8 @@ subpackages mirror scp_tpu's:
   core    — numpy geometry: Morton codes, octree, transforms, quantization.
   codec   — level slicing, stream container, device rANS, the EHEM codec.
   models  — torch EHEM: DGCNN trunk, 1-D Swin, multiscale heads.
-  ops     — KNN, and the fused Swin sublayers with their Hopper kernels
+  ops     — KNN, the fused KNN distance + top-k, the fused Swin
+            sublayers and window attention, with their Hopper kernels
             (CUDA C++ under ops/csrc, built with nvcc at first use).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with

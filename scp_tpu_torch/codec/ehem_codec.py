@@ -267,6 +267,8 @@ class EHEMCodec:
             f"plan=tailmerge;"
             f"knn=exact;"
             f"staticknn={1 if self.model.static_knn else 0};"
+            f"pallas_knn={1 if self.model.pallas_knn else 0};"
+            f"pallas_attn={1 if self.model.pallas_attn else 0};"
             f"kernels={'cuda' if self.device.type == 'cuda' else 'plain'};"
             f"backend={self.backend}"
         )
@@ -284,7 +286,15 @@ class EHEMCodec:
         payload = enc.finish()
         return payload, len(payload) * 8, enc.n_symbols
 
-    def new_stream_decoder(self, payload: bytes):
+    def new_stream_decoder(self, payload: bytes, coding_params: str | None = None):
+        """Decoder over a stream's payload.  `coding_params` is the stamp
+        the stream was written with (its header's); a stream stamped with
+        other settings is refused, since its CDF rows would not match."""
+        if coding_params is not None and coding_params != self.coding_params():
+            raise ValueError(
+                f"stream coded with {coding_params!r}, but this codec runs "
+                f"{self.coding_params()!r}"
+            )
         return rans.RansDecoder(payload, self.device)
 
     def _uniform_rows(self):

@@ -68,13 +68,16 @@ class GeoFeatGenerator(nn.Module):
 
     `static_knn` reuses the position graph for all three EdgeConv rounds
     (scp_tpu reads it from SCP_STATIC_KNN; here it is an argument, so no
-    string such as "0" can turn it on by accident)."""
+    string such as "0" can turn it on by accident).  `pallas_knn` sends
+    graphs of N >= 2048 rows to the fused KNN op, kernel D (scp_tpu's
+    SCP_PALLAS_KNN, an argument for the same reason)."""
 
     def __init__(self, k: int = 20, max_level: int = 19, static_knn: bool = False,
-                 dtype=torch.float32):
+                 pallas_knn: bool = False, dtype=torch.float32):
         super().__init__()
         self.k = k
         self.static_knn = bool(static_knn)
+        self.pallas_knn = bool(pallas_knn)
         self.dtype = dtype
         self.occ_enc = nn.Embedding(256, 16)
         self.level_enc = nn.Embedding(max_level, 4)
@@ -110,14 +113,15 @@ class GeoFeatGenerator(nn.Module):
         )  # (B, N, 80)
 
         k = min(self.k, n)
+        fused = self.pallas_knn
         pos = pos.to(self.dtype)
-        idx1 = knn_indices(pos, k)
+        idx1 = knn_indices(pos, k, fused)
         pos1 = self.conv1(pos, idx1)
         f2 = torch.cat([pos1, x], -1)
-        pos2 = self.conv2(f2, idx1 if self.static_knn else knn_indices(f2, k))
+        pos2 = self.conv2(f2, idx1 if self.static_knn else knn_indices(f2, k, fused))
         x = self.mlp2(x)
         f3 = torch.cat([pos2, x], -1)
-        pos3 = self.conv3(f3, idx1 if self.static_knn else knn_indices(f3, k))
+        pos3 = self.conv3(f3, idx1 if self.static_knn else knn_indices(f3, k, fused))
         x = self.mlp3(x)
 
         ec = self.edge_mlp1(torch.cat([pos1, pos2, pos3], -1))

@@ -12,6 +12,12 @@
 
 Decoding is functional as in scp_tpu: phase 1 returns (logits1, feat_a1,
 feat_a2); the caller feeds decoded group-1 occupancies into phase 2.
+
+`static_knn`, `pallas_knn` and `pallas_attn` are constructor arguments
+standing for scp_tpu's SCP_STATIC_KNN, SCP_PALLAS_KNN and SCP_PALLAS_ATTN
+(which scp_tpu reads with bool(), so "0" turns them on): the fused KNN op
+(kernel D) for graphs of N >= 2048 rows, and the fused window attention
+(kernel E) in the Swin blocks' unfused branch.  All default off.
 """
 
 from __future__ import annotations
@@ -40,17 +46,24 @@ class EHEM(nn.Module):
         window_size: int = 512,
         mlp_ratio: float = 4.0,
         static_knn: bool = False,
+        pallas_knn: bool = False,
+        pallas_attn: bool = False,
         dtype: torch.dtype = torch.float32,
         device=None,
     ):
         super().__init__()
         self.static_knn = bool(static_knn)
+        self.pallas_knn = bool(pallas_knn)
+        self.pallas_attn = bool(pallas_attn)
         self.dtype = dtype
-        self.geo = GeoFeatGenerator(knn_k, max_level, static_knn=static_knn, dtype=dtype)
+        self.geo = GeoFeatGenerator(knn_k, max_level, static_knn=static_knn,
+                                    pallas_knn=pallas_knn, dtype=dtype)
         self.swin_self = SwinEncoder1D(GEO_DIM, embed_dim, tuple(self_depths), num_heads,
-                                       window_size, mlp_ratio, cross=False, dtype=dtype)
+                                       window_size, mlp_ratio, cross=False,
+                                       pallas_attn=pallas_attn, dtype=dtype)
         self.swin_cross = SwinEncoder1D(GEO_DIM, embed_dim, tuple(cross_depths), num_heads,
-                                        window_size, mlp_ratio, cross=True, dtype=dtype)
+                                        window_size, mlp_ratio, cross=True,
+                                        pallas_attn=pallas_attn, dtype=dtype)
         ms_self = sum(self.swin_self.stage_widths)
         ms_cross = sum(self.swin_cross.stage_widths)
         self.ancient_mlp = MLP(ms_self, [1024, 512, GEO_DIM], dtype=dtype)

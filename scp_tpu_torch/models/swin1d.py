@@ -15,7 +15,9 @@ sublayer (swin1d.py:171-217) goes to ops.swin_attn when the sequence
 tiles the window exactly, and the MLP sublayer (:244-263) to ops.mlp.
 Those ops run their hand-written kernels on a CUDA tensor and their plain
 versions on a CPU tensor.  A padded sequence keeps the unfused path
-(:221-234) of plain tensor ops.
+(:221-234) of plain tensor ops; with `pallas_attn` (scp_tpu's
+SCP_PALLAS_ATTN) its attention core goes to ops.window_attn, kernel E,
+where the window passes that op's rule (swin1d.py:114-131).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from torch import nn
 
 from scp_tpu_torch.models.layers import Dense, LayerNorm
 from scp_tpu_torch.ops import mlp as mlp_ops
-from scp_tpu_torch.ops import swin_attn
+from scp_tpu_torch.ops import swin_attn, window_attn
 
 EPS = 1e-5  # LayerNorm epsilon of every Swin norm (flax SwinConfig.layer_norm_eps)
 
@@ -58,10 +60,11 @@ def _mask_tensor(padded_len: int, window: int, shift: int, device: torch.device)
 
 class WindowAttention1D(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, cross: bool = False,
-                 dtype=torch.float32):
+                 pallas_attn: bool = False, dtype=torch.float32):
         super().__init__()
         self.dim, self.num_heads, self.window_size = dim, num_heads, window_size
         self.cross = cross
+        self.pallas_attn = bool(pallas_attn)
         self.dtype = dtype
         self.rel_pos_bias = nn.Parameter(torch.zeros(2 * window_size - 1, num_heads))
         if cross:
@@ -91,6 +94,18 @@ class WindowAttention1D(nn.Module):
             q, k, v = torch.chunk(self.qkv(x), 3, dim=-1)
         b, nw = q.shape[:2]
         q, k, v = (t.reshape(b, nw, w, h, hd) for t in (q, k, v))
+        if self.pallas_attn and window_attn.supported(w, hd):
+            def heads_major(t):  # (B, nW, W, H, hd) -> (B*nW, H, W, hd)
+                return t.permute(0, 1, 3, 2, 4).reshape(b * nw, h, w, hd).contiguous()
+
+            if mask is None:
+                mask = _mask_tensor(w, w, 0, x.device)  # (1, W, W) zeros
+            out = window_attn.window_attention(
+                heads_major(q), heads_major(k), heads_major(v), rel_bias, mask,
+                1.0 / math.sqrt(hd),
+            )
+            out = out.reshape(b, nw, h, w, hd).permute(0, 1, 3, 2, 4)
+            return self.proj(out.reshape(b, nw, w, self.dim))
         dt = self.dtype
         scores = torch.einsum("bnqhd,bnkhd->bnhqk", q, k)
         scores = scores * torch.tensor(1.0 / math.sqrt(hd), dtype=dt)
@@ -106,13 +121,14 @@ class WindowAttention1D(nn.Module):
 
 class SwinBlock1D(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, mlp_ratio: float,
-                 shift: int, cross: bool = False, dtype=torch.float32):
+                 shift: int, cross: bool = False, pallas_attn: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.dim, self.num_heads, self.window_size = dim, num_heads, window_size
         self.shift, self.cross = shift, cross
         self.dtype = dtype
         self.norm1 = LayerNorm(dim, EPS)
-        self.attn = WindowAttention1D(dim, num_heads, window_size, cross, dtype)
+        self.attn = WindowAttention1D(dim, num_heads, window_size, cross, pallas_attn, dtype)
         f = int(mlp_ratio * dim)
         self.norm2 = LayerNorm(dim, EPS)
         self.mlp1 = Dense(dim, f, dtype=dtype)
@@ -201,14 +217,15 @@ class PatchMerging1D(nn.Module):
 class SwinStage1D(nn.Module):
     def __init__(self, dim: int, out_dim: int, depth: int, num_heads: int,
                  window_size: int, mlp_ratio: float, downsample: bool,
-                 cross: bool = False, dtype=torch.float32):
+                 cross: bool = False, pallas_attn: bool = False, dtype=torch.float32):
         super().__init__()
         self.depth = depth
         self.cross = cross
         for i in range(depth):
             self.add_module(f"block_{i}", SwinBlock1D(
                 dim, num_heads, window_size, mlp_ratio,
-                shift=0 if i % 2 == 0 else window_size // 2, cross=cross, dtype=dtype,
+                shift=0 if i % 2 == 0 else window_size // 2, cross=cross,
+                pallas_attn=pallas_attn, dtype=dtype,
             ))
         self.merge = PatchMerging1D(dim, out_dim, dtype=dtype) if downsample else None
 
@@ -230,7 +247,7 @@ class SwinEncoder1D(nn.Module):
 
     def __init__(self, in_dim: int, embed_dim: int, depths, num_heads: int,
                  window_size: int, mlp_ratio: float, cross: bool = False,
-                 dtype=torch.float32):
+                 pallas_attn: bool = False, dtype=torch.float32):
         super().__init__()
         self.n_stages = len(depths)
         # widths of the returned states[1:]: what a multiscale head reads
@@ -239,7 +256,8 @@ class SwinEncoder1D(nn.Module):
             dim = in_dim if s == 0 else embed_dim
             self.add_module(f"stage_{s}", SwinStage1D(
                 dim, embed_dim, depth, num_heads, window_size, mlp_ratio,
-                downsample=s < self.n_stages - 1, cross=cross, dtype=dtype,
+                downsample=s < self.n_stages - 1, cross=cross, pallas_attn=pallas_attn,
+                dtype=dtype,
             ))
 
     def forward(self, x, query=None):

@@ -26,7 +26,7 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("mlp.cu", "swin_attn.cu")
+SOURCES = ("mlp.cu", "swin_attn.cu", "knn_topk.cu", "window_attn.cu")
 FLAGS = ["-shared", "-Xcompiler", "-fPIC", "-arch=sm_90a", "-O3", "-std=c++17"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -38,6 +38,12 @@ _SIGNATURES = {
     "swin_attn.cu": {
         "scp_attn_self": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 4 + [_F, _F, _P],
         "scp_attn_cross": [_P] * 10 + [_I] + [_P] * 6 + [_I] * 4 + [_F, _F, _P],
+    },
+    "knn_topk.cu": {
+        "scp_knn_topk": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "window_attn.cu": {
+        "scp_window_attn": [_P] * 5 + [_I, _P] + [_I] * 4 + [_F, _P],
     },
 }
 

@@ -10,9 +10,12 @@ score maps to an order-preserving int32, and the int64 key
 `ordered * 2^32 + (2^32 - 1 - index)` is unique per column, largest for
 the best score and, among equal scores, for the lowest index.
 
-The fused Pallas distance+top-k kernel (scp_tpu/ops/pallas_knn.py) is
-opt-in on the TPU and not on this slice's path; it is queued for a
-Hopper kernel in ROADMAP.md.
+`knn_indices(..., fused=True)` takes graphs of N >= 2048 rows to the
+fused distance + top-k op of ops/knn_topk.py (kernel D, the counterpart
+of scp_tpu/ops/pallas_knn.py), as scp_tpu does under SCP_PALLAS_KNN=1
+(scp_tpu/ops/knn.py:47-55).  scp_tpu also asks for a non-CPU backend
+there; the port's rule is the same on every device: the CPU runs D's
+plain version, the card its kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 
 _KNN_CHUNK = 1024
+FUSED_MIN_N = 2048  # graphs this large go to the fused op when it is on
 
 
 def _ordered_key(scores: torch.Tensor) -> torch.Tensor:
@@ -40,28 +44,42 @@ def top_k_lowest_ties(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _scores(q: torch.Tensor, q_sq: torch.Tensor, feats: torch.Tensor,
-            sq: torch.Tensor) -> torch.Tensor:
-    """2 q.k - |q|^2 - |k|^2 with f32 accumulation, stored in the feature
-    dtype (bf16 features keep bf16 scores, as scp_tpu's _score_dtype)."""
+            sq: torch.Tensor, round_bf16: bool) -> torch.Tensor:
+    """2 q.k - |q|^2 - |k|^2 with f32 accumulation; `round_bf16` stores
+    the scores in bf16 (scp_tpu's _score_dtype for bf16 features)."""
     s = 2.0 * torch.einsum("bqc,bmc->bqm", q.float(), feats.float())
     s = s - q_sq[:, :, None] - sq[:, None, :]
-    if feats.dtype == torch.bfloat16:
+    if round_bf16:
         s = s.to(torch.bfloat16).float()
     return s
 
 
-def knn_indices(feats: torch.Tensor, k: int) -> torch.Tensor:
-    """k nearest neighbors (squared L2, self included).
-
-    feats (B, N, C) -> (B, N, k) int64 indices; query tiles of 1024 rows
-    bound the (B, tile, N) score matrix."""
-    b, n, c = feats.shape
-    sq = torch.sum(feats.float() * feats.float(), dim=-1)  # (B, N)
+def chunked_knn(feats: torch.Tensor, k: int, sq: torch.Tensor,
+                round_bf16: bool) -> torch.Tensor:
+    """Exact top-k over score rows built in query tiles of 1024 rows,
+    which bound the (B, tile, N) score matrix; sq (B, N) are the f32
+    squared norms."""
+    n = feats.shape[1]
     out = []
     for s0 in range(0, n, _KNN_CHUNK):
         q = feats[:, s0 : s0 + _KNN_CHUNK]
-        out.append(top_k_lowest_ties(_scores(q, sq[:, s0 : s0 + _KNN_CHUNK], feats, sq), k))
+        s = _scores(q, sq[:, s0 : s0 + _KNN_CHUNK], feats, sq, round_bf16)
+        out.append(top_k_lowest_ties(s, k))
     return torch.cat(out, dim=1) if len(out) > 1 else out[0]
+
+
+def knn_indices(feats: torch.Tensor, k: int, fused: bool = False) -> torch.Tensor:
+    """k nearest neighbors (squared L2, self included).
+
+    feats (B, N, C) -> (B, N, k) int64 indices.  With `fused`, graphs of
+    N >= FUSED_MIN_N rows take kernel D (f32 scores); the rest keep the
+    chunked path, whose bf16 features keep bf16 scores."""
+    if fused and feats.shape[1] >= FUSED_MIN_N:
+        from scp_tpu_torch.ops.knn_topk import knn_topk  # imports this module
+
+        return knn_topk(feats, k)
+    sq = torch.sum(feats.float() * feats.float(), dim=-1)  # (B, N)
+    return chunked_knn(feats, k, sq, feats.dtype == torch.bfloat16)
 
 
 def gather_neighbors(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -65,9 +65,10 @@ def main() -> int:
             _, bits, _ = EHEMCodec(model, context_size=8192).encode_to_stream(slices)
         return bits / N_POINTS
 
-    def scores_f32(q, q_sq, feats, sq):
-        s = 2.0 * torch.einsum("bqc,bmc->bqm", q.float(), feats.float())
-        return s - q_sq[:, :, None] - sq[:, None, :]
+    scores = knn._scores
+
+    def scores_f32(q, q_sq, feats, sq, round_bf16):
+        return scores(q, q_sq, feats, sq, False)
 
     class PlainOps:  # the seams' plain versions, whatever the device
         ln_mlp_residual = staticmethod(mlp.ln_mlp_residual_plain)
