@@ -24,7 +24,14 @@ Phases, each printed as it ends (any failure exits non-zero):
      pallas_attn, scp_tpu's SCP_PALLAS_KNN / SCP_PALLAS_ATTN): kernel D
      builds the position graphs of N >= 2048 rows, kernel E the attention
      of the padded deep Swin stages; lossless, and its bpp within 0.1% of
-     phase 4's.
+     phase 4's;
+  6. the roundtrip of an f32 EHEM with pallas_attn on: kernels A, B, C and
+     E in f32 (CUDA cores, no TF32); lossless, its bpp within 0.1% of the
+     f32 figure of scp_tpu_torch/tools/rate_probe.py (plain f32 sublayers).
+
+Phase 2 also holds A, B, C and E in f32 against their plain versions
+(atol = rtol = 1e-4), and times the attention core that B, C and E share
+at B's layout and token count beside scaled_dot_product_attention.
 
 The second-to-last line is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX or scp_tpu.
@@ -47,14 +54,22 @@ CKPT = os.path.join(HERE, "checkpoints", "ehem_synth_f16_sknn.npz")
 N_POINTS = 120_000
 LIDAR_LEVEL = 16
 TOL = 3e-2  # atol = rtol: bf16 outputs (8-bit mantissa), kernel vs plain summation order
+F32_TOL = 1e-4  # atol = rtol: f32 outputs, summation order over K <= 1024 (TF32 would miss it)
 # kernel D vs its plain version: the index lists may differ only where the
 # two sum a dot product in other orders and a near tie swaps; the exact
 # (f64) distances of both picks agree within KNN_RTOL on every row
 KNN_SAME_ROWS = 0.999
 KNN_RTOL = 1e-5
 BPP_RTOL = 1e-3  # phase 5 vs phase 4: f32 instead of bf16 KNN scores
+# phase 4 vs the main path's rate before the attention core was unified
+# (chip_smoke.py phase 4 on the H100, PERF.md section 6)
+MAIN_PATH_BPP = 18.4428
+# phase 6 vs the f32 model with plain sublayers (tools/rate_probe.py, the
+# L16 cloud on the H100, PERF.md section 6)
+F32_PLAIN_BPP = 18.4245
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # CUDA cores, no tensor cores
 PEAK_BYTES = 3.35e12
 
 
@@ -88,14 +103,14 @@ def cuda_time_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def check_close(name, got, want):
+def check_close(name, got, want, tol=TOL):
     err = (got.float() - want.float()).abs()
-    bound = TOL + TOL * want.float().abs()
+    bound = tol + tol * want.float().abs()
     max_err = float(err.max())
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     bad = int((err > bound).sum())
-    say(f"  {name}: max_abs_err={max_err:.6g} (tolerance atol=rtol={TOL}), "
+    say(f"  {name}: max_abs_err={max_err:.6g} (tolerance atol=rtol={tol}), "
         f"elements over tolerance: {bad}")
     if bad:
         raise AssertionError(f"{name}: {bad} elements over tolerance")
@@ -143,10 +158,73 @@ def level_positions(slices, lanes: int, width: int):
     return pq.reshape(lanes, width, 3).to("cuda", torch.bfloat16)
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def f32_row(name, kernel, plain, args, n_bytes, flops, reps=3):
+    """A kernel in f32 against its plain version (F32_TOL): error, times
+    and the f32 bound (bytes doubled from bf16, CUDA-core peak)."""
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    err = check_close(f"{name} in f32", got, plain(*args), F32_TOL)
+    b, by = bound_ms(n_bytes, flops, PEAK_F32_FLOPS)
+    return dict(f32_max_abs_err=err, f32_ms=cuda_time_ms(lambda: kernel(*args), reps),
+                f32_plain_ms=cuda_time_ms(lambda: plain(*args), 2), f32_bound_ms=b,
+                f32_bound_by=by)
+
+
+def f32_args(args):
+    """bf16 tensors of an argument tuple as f32 (weights, activations)."""
+    return tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16 else a
+                 for a in args)
+
+
+def n_masks(mask):
+    return 0 if mask is None else mask.shape[0]
+
+
+def sdpa_bias(bias, mask, n_win):
+    """SDPA's attn_mask for the same logits: bias (+ window n's mask), bf16."""
+    if mask is None:
+        return bias[None].to(torch.bfloat16)
+    mask_b = mask[torch.arange(n_win, device=mask.device) % mask.shape[0]]
+    return (bias[None] + mask_b[:, None]).to(torch.bfloat16)
+
+
+def core_at_b_layout(rand, n_win, w, c, h, bias, mask):
+    """The attention core B, C and E share, at B's layout (q, k, v the
+    column-strided (BN*W, 3C) projection buffer) and token count, against
+    its plain version and beside SDPA on the same inputs (contiguous
+    copies, the bf16 bias + mask as attn_mask)."""
+    from scp_tpu_torch.ops import window_attn
+
+    hd = c // h
+    qkv = rand(n_win * w, 3 * c)
+    q, k, v = (qkv[:, i * c:(i + 1) * c].reshape(n_win, w, h, hd).permute(0, 2, 1, 3)
+               for i in range(3))
+    att = torch.empty((n_win * w, c), dtype=qkv.dtype, device=qkv.device)
+    out = att.reshape(n_win, w, h, hd).permute(0, 2, 1, 3)
+    args = (q, k, v, bias, mask, hd ** -0.5)
+    window_attn.launch_core(*args, out)
+    torch.cuda.synchronize()
+    err = check_close(f"B core at B's layout ({n_win}, {h}, {w}, {hd}), {mask.shape[0]} masks",
+                      out, window_attn.window_attention_plain(*args))
+    sdpa_mask = sdpa_bias(bias, mask, n_win)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    nb = 4 * n_win * w * c * 2 + h * w * w * 4 + mask.numel() * 4
+    b, by = bound_ms(nb, 4 * n_win * h * w * w * hd)
+    row = dict(
+        core_max_abs_err=err, core_ms=cuda_time_ms(lambda: window_attn.launch_core(*args, out), 10),
+        core_plain_ms=cuda_time_ms(lambda: window_attn.window_attention_plain(*args), 3),
+        core_library_ms=cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=sdpa_mask, scale=hd ** -0.5), 10),
+        core_bound_ms=b, core_bound_by=by,
+    )
+    del sdpa_mask
+    return row
 
 
 def kernel_phase(model, gen, slices):
@@ -182,7 +260,9 @@ def kernel_phase(model, gen, slices):
         name="ln_mlp_residual", route="cuda", source="scp_tpu_torch/ops/csrc/mlp.cu",
         replaces="scp_tpu/ops/pallas_mlp.py:96", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-        tokens=m_self,
+        tokens=m_self, **f32_row("A ln_mlp_residual (gelu)", mlp_ops.ln_mlp_residual,
+                                 mlp_ops.ln_mlp_residual_plain, f32_args(args), 2 * nb,
+                                 2 * 2 * m_self * c * f),
     )
 
     # ---- B: self attention sublayer, unshifted (block 0) and shifted (block 1)
@@ -190,13 +270,13 @@ def kernel_phase(model, gen, slices):
     for bi, shift in ((0, 0), (1, w // 2)):
         blk = getattr(model.swin_self.stage_0, f"block_{bi}")
         at = blk.attn
-        mask = _mask_tensor(width, w, shift, dev)
+        mask = _mask_tensor(width, w, shift, dev) if shift else None  # as the seam passes it
         xw = rand(m_self // w, w, c)
         args = (xw, blk.norm1.weight, blk.norm1.bias, at.qkv.weight, at.qkv.bias,
                 at.rel_bias(), mask, at.proj.weight, at.proj.bias, h, 1e-5)
         got = swin_attn.attn_sublayer_self(*args)
         torch.cuda.synchronize()
-        errs.append(check_close(f"B attn_sublayer_self (shift {shift}, {mask.shape[0]} masks)",
+        errs.append(check_close(f"B attn_sublayer_self (shift {shift}, {n_masks(mask)} masks)",
                                 got, swin_attn.attn_sublayer_self_plain(*args)))
         ms_list.append(cuda_time_ms(lambda: swin_attn.attn_sublayer_self(*args), 10))
         plain_list.append(cuda_time_ms(lambda: swin_attn.attn_sublayer_self_plain(*args), 2))
@@ -209,6 +289,9 @@ def kernel_phase(model, gen, slices):
         replaces="scp_tpu/ops/pallas_swin.py:63", max_abs_err=max(errs), ms=ms_list[1],
         plain_ms=plain_list[1], bound_ms=b, bound_by=by, library_ms=None,
         tokens=m_self, ms_unshifted=ms_list[0],
+        **f32_row(f"B attn_sublayer_self (shift {w // 2})", swin_attn.attn_sublayer_self,
+                  swin_attn.attn_sublayer_self_plain, f32_args(args), 2 * nb, flops),
+        **core_at_b_layout(rand, n_win, w, c, h, blk.attn.rel_bias(), mask),
     )
 
     # ---- C: cross attention sublayer, phase-2 stage 0 block 1 (shifted)
@@ -233,6 +316,8 @@ def kernel_phase(model, gen, slices):
         name="attn_sublayer_cross", route="cuda", source="scp_tpu_torch/ops/csrc/swin_attn.cu",
         replaces="scp_tpu/ops/pallas_swin.py:96", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None, tokens=m_cross,
+        **f32_row(f"C attn_sublayer_cross (shift {w // 2})", swin_attn.attn_sublayer_cross,
+                  swin_attn.attn_sublayer_cross_plain, f32_args(args), 2 * nb, flops),
     )
 
     # ---- D: fused KNN distance + top-k, k = 20: the L16 position graph of
@@ -275,28 +360,30 @@ def kernel_phase(model, gen, slices):
     e_shapes = {}
     hd = c // h
     for tag, bn, mask in (
-        ("on_path", 1, _mask_tensor(w, w, 0, dev)),
+        ("on_path", 1, None),
         ("bn240", m_self // w, _mask_tensor(2 * w, w, w // 2, dev)),
     ):
         q, k_, v = (rand(bn, h, w, hd) for _ in range(3))
         args = (q, k_, v, bias, mask, hd ** -0.5)
         got = window_attn.window_attention(*args)
         torch.cuda.synchronize()
-        err = check_close(f"E window_attention ({bn}, {h}, {w}, {hd}), {mask.shape[0]} masks",
+        err = check_close(f"E window_attention ({bn}, {h}, {w}, {hd}), {n_masks(mask)} masks",
                           got, window_attn.window_attention_plain(*args))
-        mask_b = mask[torch.arange(bn, device=dev) % mask.shape[0]]
-        sdpa_mask = (bias[None] + mask_b[:, None]).to(torch.bfloat16)
-        nb = 4 * bn * h * w * hd * 2 + h * w * w * 4 + mask.numel() * 4
+        sdpa_mask = sdpa_bias(bias, mask, bn)
+        nb = 4 * bn * h * w * hd * 2 + h * w * w * 4 + n_masks(mask) * w * w * 4
         b, by = bound_ms(nb, 4 * bn * h * w * w * hd)
         e_shapes[tag] = dict(
             err=err, ms=cuda_time_ms(lambda: window_attn.window_attention(*args), 10),
             plain=cuda_time_ms(lambda: window_attn.window_attention_plain(*args), 3),
             lib=cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k_, v, attn_mask=sdpa_mask, scale=hd ** -0.5), 10),
-            bound=b, by=by, tokens=bn * w,
+            bound=b, by=by, tokens=bn * w, args=args, nb=nb,
         )
         del sdpa_mask
     ep, eb = e_shapes["on_path"], e_shapes["bn240"]
+    e32 = f32_row(f"E window_attention {tuple(eb['args'][0].shape)}",
+                  window_attn.window_attention, window_attn.window_attention_plain,
+                  f32_args(eb["args"]), 2 * eb["nb"], 4 * eb["tokens"] * h * w * hd)
     rows["E"] = dict(
         name="window_attention", route="cuda", source="scp_tpu_torch/ops/csrc/window_attn.cu",
         replaces="scp_tpu/ops/pallas_attn.py:41", max_abs_err=max(ep["err"], eb["err"]),
@@ -305,6 +392,7 @@ def kernel_phase(model, gen, slices):
         "bias + mask as attn_mask", shape=[1, h, w, hd], tokens=ep["tokens"],
         bn240_shape=[m_self // w, h, w, hd], bn240_ms=eb["ms"], bn240_plain_ms=eb["plain"],
         bn240_bound_ms=eb["bound"], bn240_bound_by=eb["by"], bn240_library_ms=eb["lib"],
+        f32_shape=[m_self // w, h, w, hd], **e32,
     )
     return rows
 
@@ -396,6 +484,15 @@ def main() -> int:
         f"{d['c192_main_path_knn_ms']:.4f}, bound {d['c192_bound_ms']:.4f} ms")
     say(f"  E at {e['bn240_shape']}: kernel {e['bn240_ms']:.4f}, plain {e['bn240_plain_ms']:.4f}, "
         f"SDPA {e['bn240_library_ms']:.4f}, bound {e['bn240_bound_ms']:.4f} ms")
+    b = rows["B"]
+    say(f"  B's attention core at B's layout: kernel {b['core_ms']:.4f}, plain "
+        f"{b['core_plain_ms']:.4f}, SDPA {b['core_library_ms']:.4f}, bound "
+        f"{b['core_bound_ms']:.4f} ms")
+    for k in ("A", "B", "C", "E"):
+        r = rows[k]
+        say(f"  {k} in f32: {r['f32_ms']:.4f} ms/launch, plain {r['f32_plain_ms']:.4f} ms, "
+            f"bound {r['f32_bound_ms']:.4f} ms ({r['f32_bound_by']}), "
+            f"max_abs_err {r['f32_max_abs_err']:.3g}")
 
     # ---- 4. the main path: one encode, one decode
     counted = {"A": mlp_ops.ln_mlp_residual, "B": swin_attn.attn_sublayer_self,
@@ -407,6 +504,9 @@ def main() -> int:
         f"kernel launches A/B/C/D/E = {p4['launches']}")
     if p4["launches"][3] or p4["launches"][4]:
         raise AssertionError("kernels D and E launched with their switches off")
+    if abs(p4["bpp"] - MAIN_PATH_BPP) > BPP_RTOL * MAIN_PATH_BPP:
+        raise AssertionError(f"phase 4 bpp {p4['bpp']} is not within {BPP_RTOL} of "
+                             f"{MAIN_PATH_BPP}")
 
     # ---- 5. the fused-kernel configuration (pallas_knn, pallas_attn)
     t0 = time.time()
@@ -422,12 +522,30 @@ def main() -> int:
     if abs(p5["bpp"] - p4["bpp"]) > BPP_RTOL * p4["bpp"]:
         raise AssertionError(f"phase 5 bpp {p5['bpp']} is not within {BPP_RTOL} of phase 4's")
 
-    # A, B, C count from phase 4 (the default path), D and E from phase 5
-    for k, phase in (("A", p4), ("B", p4), ("C", p4), ("D", p5), ("E", p5)):
+    # ---- 6. an f32 model with pallas_attn on: A, B, C and E in f32
+    t0 = time.time()
+    model6 = EHEM(static_knn=True, pallas_attn=True, dtype=torch.float32, device="cuda")
+    load_into(model6, CKPT)
+    codec6 = EHEMCodec(model6, context_size=8192)
+    say(f"phase 6 model: {time.time() - t0:.2f} s, stamp {codec6.coding_params()}")
+    p6 = roundtrip(codec6, slices, counted.values())
+    say(f"phase 6 roundtrip (f32): lossless, bpp={p6['bpp']:.4f}, bytes={p6['bytes']}, "
+        f"encode {p6['encode_s']:.3f} s, decode {p6['decode_s']:.3f} s, "
+        f"kernel launches A/B/C/D/E = {p6['launches']}")
+    if abs(p6["bpp"] - F32_PLAIN_BPP) > BPP_RTOL * F32_PLAIN_BPP:
+        raise AssertionError(f"phase 6 bpp {p6['bpp']} is not within {BPP_RTOL} of the f32 "
+                             f"plain model's {F32_PLAIN_BPP}")
+
+    # A, B, C count from phase 4 (the default path), D and E from phase 5;
+    # A, B, C and E in f32 from phase 6
+    for k, phase, key in (("A", p4, "launches"), ("B", p4, "launches"), ("C", p4, "launches"),
+                          ("D", p5, "launches"), ("E", p5, "launches"),
+                          ("A", p6, "f32_launches"), ("B", p6, "f32_launches"),
+                          ("C", p6, "f32_launches"), ("E", p6, "f32_launches")):
         n = phase["launches"][list(counted).index(k)]
         if n == 0:
             raise AssertionError(f"kernel {k} ({rows[k]['name']}) never launched on its path")
-        rows[k]["launches"] = n
+        rows[k][key] = n
     say(f"total wall {time.time() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

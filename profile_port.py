@@ -17,6 +17,7 @@ Prints a summary and writes it as JSON to --out.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -32,6 +33,7 @@ from chip_smoke import CKPT, LIDAR_LEVEL, N_POINTS, synth_kitti
 def _wrap(owner, name, label):
     fn = getattr(owner, name)
 
+    @functools.wraps(fn)  # keeps a kernel wrapper's launch count attribute
     def wrapped(*a, **k):
         with record_function(label):
             return fn(*a, **k)
@@ -72,6 +74,7 @@ def main():
     from scp_tpu_torch.codec.slices import split_levels
     from scp_tpu_torch.core.preprocess import kitti_qs, preprocess_points
     from scp_tpu_torch.models import dgcnn
+    from scp_tpu_torch.ops import window_attn
     from scp_tpu_torch.models.ehem import EHEM
     from scp_tpu_torch.weights import load_into
 
@@ -96,11 +99,12 @@ def main():
     _wrap(ehem_codec, "_expand_windowed", "expand")
     _wrap(dgcnn, "knn_indices", "knn")
     _wrap(model, "_trunk", "trunk")
+    _wrap(window_attn, "window_attention", "window_attention")  # kernel E's launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_t = roundtrip(codec, slices)
 
     names = ("phase1", "phase2", "trunk", "knn", "rans_encode_chunk",
-             "rans_decode_chunk", "expand")
+             "rans_decode_chunk", "expand", "window_attention")
     events = prof.key_averages()
 
     def dev(e):
@@ -126,8 +130,11 @@ def main():
     # idle share against the unprofiled warm wall (the profiler slows the host)
     warm_ms = 1e3 * sum(e + d for e, d, _ in warm) / len(warm)
     ours = {k: sum(ms for n, ms, _ in kernels if k in n)
-            for k in ("scp::gemm_bf16", "scp::window_attn_bf16", "knn_topk", "row_sqnorm",
-                      "window_attn_heads")}
+            for k in ("scp::gemm_bf16", "scp::attn_core_bf16", "knn_topk", "row_sqnorm")}
+    # B, C and E launch the same attention core; E's share is the device
+    # span of its range (zero with --pallas off)
+    ours["attn_core of E"] = ranges.get("window_attention", {}).get("device_span_ms", 0.0)
+    ours["attn_core of B and C"] = ours["scp::attn_core_bf16"] - ours["attn_core of E"]
     out = {
         "card": card,
         "config": codec.coding_params(),

@@ -29,6 +29,8 @@ from scp_tpu_torch.codec import rans
 from scp_tpu_torch.codec.slices import LevelSlices
 from scp_tpu_torch.models.ehem import EHEM
 
+# the attention numerics stamped in coding_params
+ATTN_NUMERICS = "normalized"
 BACKEND = "torch-cuda"  # stream stamp of the port (the CPU path stamps torch-cpu)
 
 
@@ -259,7 +261,11 @@ class EHEMCodec:
 
     def coding_params(self) -> str:
         """Stamp of every setting that changes the phase programs' float
-        math; decode refuses a mismatch."""
+        math; decode refuses a mismatch.  `attn` names the window-attention
+        numerics of the kernels: weights normalized and rounded to the
+        compute dtype before P.V, in every kernel (B, C and E), as the
+        Pallas kernels compute them; earlier card streams, whose B/C
+        kernels rounded unnormalized weights, carry no such field."""
         return (
             f"group={self.GROUP_SIZE};"
             f"tiny={self.TINY_UNIFORM_MAX};"
@@ -269,6 +275,7 @@ class EHEMCodec:
             f"staticknn={1 if self.model.static_knn else 0};"
             f"pallas_knn={1 if self.model.pallas_knn else 0};"
             f"pallas_attn={1 if self.model.pallas_attn else 0};"
+            f"attn={ATTN_NUMERICS};"
             f"kernels={'cuda' if self.device.type == 'cuda' else 'plain'};"
             f"backend={self.backend}"
         )

@@ -13,11 +13,14 @@
 The two sublayers dispatch at the same seams as scp_tpu: the attention
 sublayer (swin1d.py:171-217) goes to ops.swin_attn when the sequence
 tiles the window exactly, and the MLP sublayer (:244-263) to ops.mlp.
-Those ops run their hand-written kernels on a CUDA tensor and their plain
-versions on a CPU tensor.  A padded sequence keeps the unfused path
-(:221-234) of plain tensor ops; with `pallas_attn` (scp_tpu's
+Those ops run their hand-written kernels (bf16 or f32) on a CUDA tensor
+and their plain versions on a CPU tensor.  A padded sequence keeps the
+unfused path (:221-234) of plain tensor ops; with `pallas_attn` (scp_tpu's
 SCP_PALLAS_ATTN) its attention core goes to ops.window_attn, kernel E,
-where the window passes that op's rule (swin1d.py:114-131).
+where the window passes that op's rule (swin1d.py:114-131).  Each op's
+rule is scp_tpu's without the backend test, within its kernel's limits
+(windows up to 512, head dims up to 256); a shape past them takes the
+unfused plain ops on every device.
 """
 
 from __future__ import annotations
@@ -49,13 +52,11 @@ def _shift_mask(padded_len: int, window: int, shift: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _mask_tensor(padded_len: int, window: int, shift: int, device: torch.device):
-    """Device copy of the shift mask, or the (1, W, W) zero mask when
-    unshifted; cached because every block of a stage reuses it."""
-    if shift:
-        m = _shift_mask(padded_len, window, shift)
-    else:
-        m = np.zeros((1, window, window), np.float32)
-    return torch.from_numpy(m).to(device)
+    """Device copy of the shift mask, cached because every block of a
+    stage reuses it.  Unshifted blocks pass no mask where scp_tpu passes a
+    (1, W, W) zero mask: adding 0.0 changes no logit, and the kernels skip
+    the read."""
+    return torch.from_numpy(_shift_mask(padded_len, window, shift)).to(device)
 
 
 class WindowAttention1D(nn.Module):
@@ -95,17 +96,15 @@ class WindowAttention1D(nn.Module):
         b, nw = q.shape[:2]
         q, k, v = (t.reshape(b, nw, w, h, hd) for t in (q, k, v))
         if self.pallas_attn and window_attn.supported(w, hd):
-            def heads_major(t):  # (B, nW, W, H, hd) -> (B*nW, H, W, hd)
-                return t.permute(0, 1, 3, 2, 4).reshape(b * nw, h, w, hd).contiguous()
+            def heads_view(t):  # (B, nW, W, H, hd) -> (B*nW, H, W, hd), no copy
+                return t.reshape(b * nw, w, h, hd).permute(0, 2, 1, 3)
 
-            if mask is None:
-                mask = _mask_tensor(w, w, 0, x.device)  # (1, W, W) zeros
             out = window_attn.window_attention(
-                heads_major(q), heads_major(k), heads_major(v), rel_bias, mask,
+                heads_view(q), heads_view(k), heads_view(v), rel_bias, mask,
                 1.0 / math.sqrt(hd),
             )
-            out = out.reshape(b, nw, h, w, hd).permute(0, 1, 3, 2, 4)
-            return self.proj(out.reshape(b, nw, w, self.dim))
+            out = out.permute(0, 2, 1, 3).reshape(b, nw, w, self.dim)
+            return self.proj(out)
         dt = self.dtype
         scores = torch.einsum("bnqhd,bnkhd->bnhqk", q, k)
         scores = scores * torch.tensor(1.0 / math.sqrt(hd), dtype=dt)
@@ -143,7 +142,7 @@ class SwinBlock1D(nn.Module):
         attn = self.attn
 
         if pad == 0 and swin_attn.supported(n, w, c, self.num_heads):
-            mask = _mask_tensor(padded, w, shift, x.device)
+            mask = _mask_tensor(padded, w, shift, x.device) if shift else None
 
             def to_w(t):
                 if shift:

@@ -29,23 +29,26 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("mlp.cu", "swin_attn.cu", "knn_topk.cu", "window_attn.cu")
 FLAGS = ["-shared", "-Xcompiler", "-fPIC", "-arch=sm_90a", "-O3", "-std=c++17"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # argtypes of every exported launcher, by library
 _SIGNATURES = {
     "mlp.cu": {
-        "scp_ln_mlp_residual": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+        "scp_ln_mlp_residual": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],
     },
     "swin_attn.cu": {
-        "scp_attn_self": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 4 + [_F, _F, _P],
-        "scp_attn_cross": [_P] * 10 + [_I] + [_P] * 6 + [_I] * 4 + [_F, _F, _P],
+        "scp_attn_self": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 4 + [_F, _F, _I, _P],
+        "scp_attn_cross": [_P] * 10 + [_I] + [_P] * 6 + [_I] * 4 + [_F, _F, _I, _P],
     },
     "knn_topk.cu": {
         "scp_knn_topk": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     },
     "window_attn.cu": {
-        "scp_window_attn": [_P] * 5 + [_I, _P] + [_I] * 4 + [_F, _P],
+        "scp_window_attn": [_P, _L, _L, _L] * 4 + [_P, _P] + [_I] * 5 + [_F, _I, _P],
     },
 }
+# the element types the Swin kernels (A, B, C, E) take, and the flag that
+# tells a launcher which one it got
+KERNEL_DTYPES = {"bfloat16": 0, "float32": 1}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -146,6 +149,15 @@ def stream_ptr(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_flag(t) -> int:
+    """The launcher's is_f32 flag for a bf16 or f32 tensor; raises on any
+    other element type."""
+    name = str(t.dtype).replace("torch.", "")
+    if name not in KERNEL_DTYPES:
+        raise ValueError(f"kernel takes bfloat16 or float32, got {t.dtype}")
+    return KERNEL_DTYPES[name]
 
 
 def check_cuda_tensor(name: str, t, dtype, shape=None) -> None:

@@ -1,21 +1,20 @@
-// Building blocks shared by the port's Swin-sublayer kernels (sm_90a).
+// The GEMM shared by the port's Swin-sublayer kernels A, B and C (sm_90a):
+// out = epilogue(prologue(A) @ W^T), in two element types.
 //
-// Two device programs:
-//   * gemm_bf16: out = epilogue(prologue(A) @ W^T) with bf16 operands on
-//     the tensor cores (WMMA 16x16x16, f32 accumulation).  The optional
-//     prologue is a LayerNorm of each A row (statistics in f32, normalized
-//     value rounded to bf16 before the product); the epilogue adds an f32
-//     bias, applies GELU (exact erf) or LeakyReLU(0.01), adds the bf16
-//     residual in f32 and rounds to bf16.
-//   * window_attn_bf16: softmax(q k^T * scale + bias + mask) v per
-//     (window, head, 64-query tile), the 512 keys streamed in 64-key
-//     tiles with an online softmax in f32 (a 512x512 f32 score tile is
-//     1 MB, far over an SM's 228 KB of shared memory).
+//   * gemm_bf16: bf16 operands on the tensor cores (WMMA 16x16x16, f32
+//     accumulation).  The optional prologue is a LayerNorm of each A row
+//     (statistics in f32, normalized value rounded to bf16 before the
+//     product); the epilogue adds an f32 bias, applies GELU (exact erf) or
+//     LeakyReLU(0.01), adds the bf16 residual in f32 and rounds to bf16.
+//   * gemm_f32: the same prologue and epilogue in full f32 on the CUDA
+//     cores (FMAs, no TF32): a plain 64x64-tile kernel for f32 models.
 //
 // Bound on this card: at C=256 the sublayer GEMMs do 256..1024 FLOPs per
 // byte of A they read, above the H100's ~295 bf16 FLOPs/byte ridge, so a
-// tuned kernel would be tensor-core bound.  These first kernels use WMMA
-// without TMA/wgmma pipelining; making them fast is later work.
+// tuned kernel would be tensor-core bound (f32: CUDA-core bound, 67
+// TFLOP/s).  These kernels use WMMA / FMAs without TMA or wgmma
+// pipelining; making them fast is later work.  The window attention
+// between the projections is attn_core.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -185,162 +184,133 @@ inline cudaError_t launch_gemm(bool ln, const bf16* A, int lda, const float* ln_
     return cudaGetLastError();
 }
 
-// ---- window attention -----------------------------------------------------
+// ---- f32 GEMM (CUDA cores, no TF32) -------------------------------------------
 
-constexpr int AQ = 64;       // queries per block
-constexpr int AKT = 64;      // keys per tile
-constexpr int HD = 64;       // head dim
-constexpr int ALD = HD + 8;  // bf16 leading dim of Q/K/V/P tiles (144 B rows)
-constexpr int SLD = AKT + 4; // f32 leading dim of the score / output tiles
-constexpr int ATHREADS = 128;  // 4 warps x 16 query rows
+constexpr int FBM = 64;   // rows of A per block
+constexpr int FBN = 64;   // output columns per block
+constexpr int FBK = 16;   // depth per shared-memory stage
+constexpr int FGT = 256;  // 16 x 16 threads, each a 4 x 4 output patch
 
-constexpr size_t ATTN_SMEM =
-    sizeof(bf16) * (3 * AQ * ALD + AQ * ALD)  // Q, K, V tiles + P
-    + sizeof(float) * (2 * AQ * SLD);         // S and O tiles
-
-// q: rows (bw*W + i) with row stride q_ld, head h at column h*HD;
-// k, v: same with kv_ld; bias (H, W, W) f32; mask (n_masks, W, W) f32,
-// window bw uses mask[bw % n_masks]; out (BN*W, H*HD) bf16.
-// grid (W/AQ, H, BN).  Requires W % 64 == 0, head dim 64, 16-byte rows.
-__global__ void __launch_bounds__(ATHREADS)
-window_attn_bf16(const bf16* __restrict__ q, int q_ld, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, int kv_ld, const float* __restrict__ bias,
-                 const float* __restrict__ mask, int n_masks, bf16* __restrict__ out,
-                 int W, int H, float scale) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-    bf16* Ks = Qs + AQ * ALD;
-    bf16* Vs = Ks + AKT * ALD;
-    bf16* Ps = Vs + AKT * ALD;
-    float* Ss = reinterpret_cast<float*>(Ps + AQ * ALD);
-    float* Os = Ss + AQ * SLD;
+// A (M, K) f32, row stride lda; W (N, K) f32; out (M, N) f32, row stride
+// ldo; resid (M, N) f32 or null.  Requires K % FBK == 0, N % FBN == 0,
+// lda % 4 == 0 (16-byte rows).
+template <bool LN>
+__global__ void __launch_bounds__(FGT)
+gemm_f32(const float* __restrict__ A, int lda, const float* __restrict__ ln_scale,
+         const float* __restrict__ ln_bias, float eps, const float* __restrict__ W,
+         const float* __restrict__ bias, const float* __restrict__ resid, int ldr,
+         float* __restrict__ out, int ldo, int M, int N, int K, int act) {
+    __shared__ __align__(16) float As[FBK][FBM + 4];  // A tile, transposed
+    __shared__ __align__(16) float Ws[FBK][FBN + 4];  // W tile, transposed
+    __shared__ float mu_s[FBM];
+    __shared__ float rs_s[FBM];
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
     const int lane = tid & 31;
-    const int q0 = blockIdx.x * AQ;
-    const int h = blockIdx.y;
-    const int bw = blockIdx.z;
-    const size_t row0 = (size_t)bw * W;
-    const int C = H * HD;
+    const int m0 = blockIdx.y * FBM;
+    const int n0 = blockIdx.x * FBN;
 
-    for (int c = tid; c < AQ * (HD / 8); c += ATHREADS) {
-        const int r = c / (HD / 8);
-        const int col = (c % (HD / 8)) * 8;
-        *reinterpret_cast<uint4*>(Qs + r * ALD + col) = *reinterpret_cast<const uint4*>(
-            q + (row0 + q0 + r) * q_ld + h * HD + col);
-    }
-    for (int e = tid; e < AQ * HD; e += ATHREADS) Os[(e / HD) * SLD + e % HD] = 0.0f;
-
-    // each lane owns half of one query row: row r, columns [half*32, half*32+32)
-    const int r = lane >> 1;
-    const int half = lane & 1;
-    const int qi = q0 + warp * 16 + r;  // query index within the window
-    float m_run = -CUDART_INF_F;
-    float l_run = 0.0f;
-    const float* bias_row = bias + ((size_t)h * W + qi) * W;
-    const float* mask_row = mask + ((size_t)(bw % n_masks) * W + qi) * W;
-    float* S_w = Ss + warp * 16 * SLD;
-    float* O_w = Os + warp * 16 * SLD;
-    bf16* P_w = Ps + warp * 16 * ALD;
-    const bf16* Q_w = Qs + warp * 16 * ALD;
-
-    for (int kt = 0; kt < W; kt += AKT) {
-        __syncthreads();  // previous tile's K/V reads are done
-        for (int c = tid; c < AKT * (HD / 8); c += ATHREADS) {
-            const int rr = c / (HD / 8);
-            const int col = (c % (HD / 8)) * 8;
-            const size_t g = (row0 + kt + rr) * kv_ld + h * HD + col;
-            *reinterpret_cast<uint4*>(Ks + rr * ALD + col) =
-                *reinterpret_cast<const uint4*>(k + g);
-            *reinterpret_cast<uint4*>(Vs + rr * ALD + col) =
-                *reinterpret_cast<const uint4*>(v + g);
+    if (LN) {  // two-pass row statistics in f32: each warp owns 8 rows
+        for (int r = warp; r < FBM; r += FGT / 32) {
+            const int m = m0 + r;
+            float mu = 0.0f, var = 0.0f;
+            if (m < M) {
+                const float* row = A + (size_t)m * lda;
+                float s = 0.0f;
+                for (int k = lane; k < K; k += 32) s += row[k];
+                for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+                mu = s / (float)K;
+                float q = 0.0f;
+                for (int k = lane; k < K; k += 32) {
+                    const float d = row[k] - mu;
+                    q += d * d;
+                }
+                for (int o = 16; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+                var = q / (float)K;
+            }
+            if (lane == 0) {
+                mu_s[r] = mu;
+                rs_s[r] = rsqrtf(var + eps);
+            }
         }
         __syncthreads();
-
-        // S = Q_w K^T  (16 x 64 per warp)
-#pragma unroll
-        for (int j = 0; j < AKT / 16; ++j) {
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-            wmma::fill_fragment(s, 0.0f);
-#pragma unroll
-            for (int kk = 0; kk < HD; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-                wmma::load_matrix_sync(fa, Q_w + kk, ALD);
-                wmma::load_matrix_sync(fb, Ks + (j * 16) * ALD + kk, ALD);
-                wmma::mma_sync(s, fa, fb, s);
-            }
-            wmma::store_matrix_sync(S_w + j * 16, s, SLD, wmma::mem_row_major);
-        }
-        __syncwarp();
-
-        // online softmax over this tile's 64 keys, in f32
-        float sv[32];
-        float tmax = -CUDART_INF_F;
-#pragma unroll
-        for (int t = 0; t < 32; ++t) {
-            const int c = half * 32 + t;
-            const float x = S_w[r * SLD + c] * scale + bias_row[kt + c] + mask_row[kt + c];
-            sv[t] = x;
-            tmax = fmaxf(tmax, x);
-        }
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-        const float m_new = fmaxf(m_run, tmax);
-        const float alpha = expf(m_run - m_new);
-        float tsum = 0.0f;
-#pragma unroll
-        for (int t = 0; t < 32; ++t) {
-            const float p = expf(sv[t] - m_new);
-            tsum += p;
-            P_w[r * ALD + half * 32 + t] = __float2bfloat16(p);
-        }
-        tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
-        l_run = l_run * alpha + tsum;
-        m_run = m_new;
-#pragma unroll
-        for (int t = 0; t < 32; ++t) O_w[r * SLD + half * 32 + t] *= alpha;
-        __syncwarp();
-
-        // O_w += P_w V  (16 x 64 per warp)
-#pragma unroll
-        for (int j = 0; j < HD / 16; ++j) {
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-            wmma::load_matrix_sync(o, O_w + j * 16, SLD, wmma::mem_row_major);
-#pragma unroll
-            for (int kk = 0; kk < AKT; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-                wmma::load_matrix_sync(fa, P_w + kk, ALD);
-                wmma::load_matrix_sync(fb, Vs + kk * ALD + j * 16, ALD);
-                wmma::mma_sync(o, fa, fb, o);
-            }
-            wmma::store_matrix_sync(O_w + j * 16, o, SLD, wmma::mem_row_major);
-        }
-        __syncwarp();
     }
 
-    const float inv = 1.0f / l_run;
-    bf16* orow = out + (row0 + qi) * C + h * HD + half * 32;
+    const int tx = tid % 16;  // output columns n0 + tx*4 .. +3
+    const int ty = tid / 16;  // output rows m0 + ty*4 .. +3
+    const int lr = tid >> 2;  // loader: row of the A / W tile
+    const int lk = (tid & 3) * 4;  // loader: 4 depth columns
+    float acc[4][4];
 #pragma unroll
-    for (int t = 0; t < 32; ++t) orow[t] = __float2bfloat16(O_w[r * SLD + half * 32 + t] * inv);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+    for (int k0 = 0; k0 < K; k0 += FBK) {
+        const int m = m0 + lr;
+        float4 av = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (m < M) {
+            av = *reinterpret_cast<const float4*>(A + (size_t)m * lda + k0 + lk);
+            if (LN) {
+                const int k = k0 + lk;
+                const float mu = mu_s[lr], rs = rs_s[lr];
+                av.x = (av.x - mu) * rs * ln_scale[k + 0] + ln_bias[k + 0];
+                av.y = (av.y - mu) * rs * ln_scale[k + 1] + ln_bias[k + 1];
+                av.z = (av.z - mu) * rs * ln_scale[k + 2] + ln_bias[k + 2];
+                av.w = (av.w - mu) * rs * ln_scale[k + 3] + ln_bias[k + 3];
+            }
+        }
+        As[lk + 0][lr] = av.x;
+        As[lk + 1][lr] = av.y;
+        As[lk + 2][lr] = av.z;
+        As[lk + 3][lr] = av.w;
+        const float4 wv = *reinterpret_cast<const float4*>(W + (size_t)(n0 + lr) * K + k0 + lk);
+        Ws[lk + 0][lr] = wv.x;
+        Ws[lk + 1][lr] = wv.y;
+        Ws[lk + 2][lr] = wv.z;
+        Ws[lk + 3][lr] = wv.w;
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < FBK; ++k) {
+            const float4 a4 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
+            const float4 b4 = *reinterpret_cast<const float4*>(&Ws[k][tx * 4]);
+            const float av4[4] = {a4.x, a4.y, a4.z, a4.w};
+            const float bv4[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av4[i], bv4[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int m = m0 + ty * 4 + i;
+        if (m >= M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int n = n0 + tx * 4 + j;
+            float v = act_apply(acc[i][j] + bias[n], act);
+            if (resid != nullptr) v = resid[(size_t)m * ldr + n] + v;
+            out[(size_t)m * ldo + n] = v;
+        }
+    }
 }
 
-inline cudaError_t launch_attn(const bf16* q, int q_ld, const bf16* k, const bf16* v,
-                               int kv_ld, const float* bias, const float* mask, int n_masks,
-                               bf16* out, int BN, int W, int H, float scale,
-                               cudaStream_t stream) {
-    static bool attr_set = false;
-    if (!attr_set) {
-        cudaError_t e = cudaFuncSetAttribute(
-            window_attn_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ATTN_SMEM);
-        if (e != cudaSuccess) return e;
-        attr_set = true;
-    }
-    if (BN <= 0) return cudaSuccess;
-    dim3 grid(W / AQ, H, BN);
-    window_attn_bf16<<<grid, ATHREADS, ATTN_SMEM, stream>>>(q, q_ld, k, v, kv_ld, bias, mask,
-                                                            n_masks, out, W, H, scale);
+inline cudaError_t launch_gemm(bool ln, const float* A, int lda, const float* ln_scale,
+                               const float* ln_bias, float eps, const float* W,
+                               const float* bias, const float* resid, int ldr, float* out,
+                               int ldo, int M, int N, int K, int act, cudaStream_t stream) {
+    if (M <= 0) return cudaSuccess;
+    dim3 grid(N / FBN, (M + FBM - 1) / FBM);
+    if (ln)
+        gemm_f32<true><<<grid, FGT, 0, stream>>>(A, lda, ln_scale, ln_bias, eps, W, bias, resid,
+                                                  ldr, out, ldo, M, N, K, act);
+    else
+        gemm_f32<false><<<grid, FGT, 0, stream>>>(A, lda, ln_scale, ln_bias, eps, W, bias,
+                                                   resid, ldr, out, ldo, M, N, K, act);
     return cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@
 `ln_mlp_residual` computes  x + W2 act(W1 LN(x) + b1) + b2  and is the
 port's counterpart of scp_tpu/ops/pallas_mlp.py::ln_mlp_residual (Pallas
 kernel `_kernel`, pallas_call in `_fused_impl`).  Weights use nn.Linear's
-layout: w1 (F, C), w2 (C, F), bf16 on the card; LN params and biases f32.
+layout: w1 (F, C), w2 (C, F), in x's dtype (bf16 or f32 on the card); LN
+params and biases f32.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version (`ln_mlp_residual_plain`, written from pallas_mlp._reference); a
@@ -57,23 +58,24 @@ def ln_mlp_residual(x, scale, bias, w1, b1, w2, b2, eps: float, act: str):
         raise ValueError(f"ln_mlp_residual kernel: unsupported C={c}, F={f}")
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
+    flag = _cuda.dtype_flag(x)
     for name, t, dt, shape in (
-        ("x", x, torch.bfloat16, (m, c)),
+        ("x", x, x.dtype, (m, c)),
         ("scale", scale, torch.float32, (c,)),
         ("bias", bias, torch.float32, (c,)),
-        ("w1", w1, torch.bfloat16, (f, c)),
+        ("w1", w1, x.dtype, (f, c)),
         ("b1", b1, torch.float32, (f,)),
-        ("w2", w2, torch.bfloat16, (c, f)),
+        ("w2", w2, x.dtype, (c, f)),
         ("b2", b2, torch.float32, (c,)),
     ):
         _cuda.check_cuda_tensor(name, t, dt, shape)
     lib = _cuda.load("mlp.cu")
-    mid = torch.empty((m, f), dtype=torch.bfloat16, device=x.device)
+    mid = torch.empty((m, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     code = lib.scp_ln_mlp_residual(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), mid.data_ptr(),
-        out.data_ptr(), m, c, f, float(eps), ACTS[act], _cuda.stream_ptr(x),
+        out.data_ptr(), m, c, f, float(eps), ACTS[act], flag, _cuda.stream_ptr(x),
     )
     _cuda.check(lib, code, "ln_mlp_residual")
     ln_mlp_residual.launches += 1

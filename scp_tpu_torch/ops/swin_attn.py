@@ -7,11 +7,14 @@ pallas_call in `_self_impl`); `attn_sublayer_cross` of
 the JAX package except the weights, which use nn.Linear's (out, in):
 x (BN, W, C) windows; wqkv (3C, C); wq (C, C); wkv (2C, C); wp (C, C);
 rel_bias (H, W, W) f32; mask (n_masks, W, W) f32 additive, window n uses
-mask[n % n_masks].
+mask[n % n_masks], or None for no mask (the unshifted blocks).
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain version
 (written from pallas_swin._reference_self / _reference_cross); a CUDA
-tensor launches the kernels of csrc/swin_attn.cu or raises.
+tensor launches the kernels of csrc/swin_attn.cu (bf16 or f32: x, the
+weights and the outputs in one of the two, LN parameters and biases f32)
+or raises.  The attention between the projections is the core of
+csrc/attn_core.cuh, which kernel E launches too.
 """
 
 from __future__ import annotations
@@ -22,18 +25,19 @@ import torch
 import torch.nn.functional as F
 
 from scp_tpu_torch.ops import _cuda
-
-HEAD_DIM = 64  # the kernel's head dim
+from scp_tpu_torch.ops.window_attn import core_supported
 
 
 def supported(n: int, w: int, c: int, heads: int) -> bool:
-    """Pad-free sequences of whole windows at head dim 64 and 64-aligned
-    windows; the same rule on every device."""
+    """scp_tpu's rule (pallas_swin.supported: pad-free sequences of whole
+    windows, c % 128 == 0, hd % 8 == 0) without its backend test, at
+    windows of 64-row tiles, within the attention core's limits; the same
+    on every device and the launcher's own test."""
     return (
         n % w == 0
-        and w % 64 == 0
+        and c % 128 == 0
         and c % heads == 0
-        and c // heads == HEAD_DIM
+        and core_supported(w, c // heads)
     )
 
 
@@ -58,8 +62,9 @@ def _attend_project(xf, q, k, v, rel_bias, mask, wp, bp, heads, dtype):
     s = torch.einsum("nqhd,nkhd->nhqk", hsplit(q), hsplit(k))
     s = s * torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
     s = s + rel_bias[None].float()
-    mb = mask[torch.arange(bn, device=mask.device) % mask.shape[0]]
-    s = s + mb[:, None].float()
+    if mask is not None:
+        mb = mask[torch.arange(bn, device=mask.device) % mask.shape[0]]
+        s = s + mb[:, None].float()
     a = torch.softmax(s, dim=-1).to(dtype)
     att = torch.einsum("nhqk,nkhd->nqhd", a.float(), hsplit(v)).reshape(bn, w, c)
     y = F.linear(att.to(dtype).float(), wp.float()) + bp.float()
@@ -93,19 +98,25 @@ def _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads):
     bn, w, c = x.shape
     if not supported(w, w, c, heads):
         raise ValueError(f"attention kernel: unsupported W={w}, C={c}, heads={heads}")
-    if mask.ndim != 3 or mask.shape[1:] != (w, w) or mask.shape[0] < 1:
-        raise ValueError(f"mask: expected (n_masks, {w}, {w}), got {tuple(mask.shape)}")
+    flag = _cuda.dtype_flag(x)
+    if mask is not None:
+        if mask.ndim != 3 or mask.shape[1:] != (w, w) or mask.shape[0] < 1:
+            raise ValueError(f"mask: expected (n_masks, {w}, {w}), got {tuple(mask.shape)}")
+        _cuda.check_cuda_tensor("mask", mask, torch.float32)
     for name, t, dt, shape in (
-        ("x", x, torch.bfloat16, (bn, w, c)),
+        ("x", x, x.dtype, (bn, w, c)),
         ("scale", scale, torch.float32, (c,)),
         ("bias", bias, torch.float32, (c,)),
         ("rel_bias", rel_bias, torch.float32, (heads, w, w)),
-        ("mask", mask, torch.float32, None),
-        ("wp", wp, torch.bfloat16, (c, c)),
+        ("wp", wp, x.dtype, (c, c)),
         ("bp", bp, torch.float32, (c,)),
     ):
         _cuda.check_cuda_tensor(name, t, dt, shape)
-    return bn, w, c
+    return bn, w, c, flag
+
+
+def _mask_args(mask):
+    return (None, 0) if mask is None else (mask.data_ptr(), mask.shape[0])
 
 
 def attn_sublayer_self(x, scale, bias, wqkv, bqkv, rel_bias, mask, wp, bp,
@@ -114,19 +125,19 @@ def attn_sublayer_self(x, scale, bias, wqkv, bqkv, rel_bias, mask, wp, bp,
     if x.device.type == "cpu":
         return attn_sublayer_self_plain(x, scale, bias, wqkv, bqkv, rel_bias, mask,
                                         wp, bp, heads, eps)
-    bn, w, c = _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads)
-    _cuda.check_cuda_tensor("wqkv", wqkv, torch.bfloat16, (3 * c, c))
+    bn, w, c, flag = _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads)
+    _cuda.check_cuda_tensor("wqkv", wqkv, x.dtype, (3 * c, c))
     _cuda.check_cuda_tensor("bqkv", bqkv, torch.float32, (3 * c,))
     lib = _cuda.load("swin_attn.cu")
     dev = x.device
-    qkv = torch.empty((bn * w, 3 * c), dtype=torch.bfloat16, device=dev)
-    att = torch.empty((bn * w, c), dtype=torch.bfloat16, device=dev)
+    qkv = torch.empty((bn * w, 3 * c), dtype=x.dtype, device=dev)
+    att = torch.empty((bn * w, c), dtype=x.dtype, device=dev)
     out = torch.empty_like(x)
     code = lib.scp_attn_self(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), wqkv.data_ptr(),
-        bqkv.data_ptr(), rel_bias.data_ptr(), mask.data_ptr(), mask.shape[0],
+        bqkv.data_ptr(), rel_bias.data_ptr(), *_mask_args(mask),
         wp.data_ptr(), bp.data_ptr(), qkv.data_ptr(), att.data_ptr(),
-        out.data_ptr(), bn, w, c, heads, float(eps), 1.0 / math.sqrt(c // heads),
+        out.data_ptr(), bn, w, c, heads, float(eps), 1.0 / math.sqrt(c // heads), flag,
         _cuda.stream_ptr(x),
     )
     _cuda.check(lib, code, "attn_sublayer_self")
@@ -140,24 +151,24 @@ def attn_sublayer_cross(x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias, mask, wp
     if x.device.type == "cpu":
         return attn_sublayer_cross_plain(x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias,
                                          mask, wp, bp, heads, eps)
-    bn, w, c = _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads)
-    _cuda.check_cuda_tensor("qs", qs, torch.bfloat16, (bn, w, c))
-    _cuda.check_cuda_tensor("wq", wq, torch.bfloat16, (c, c))
+    bn, w, c, flag = _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads)
+    _cuda.check_cuda_tensor("qs", qs, x.dtype, (bn, w, c))
+    _cuda.check_cuda_tensor("wq", wq, x.dtype, (c, c))
     _cuda.check_cuda_tensor("bq", bq, torch.float32, (c,))
-    _cuda.check_cuda_tensor("wkv", wkv, torch.bfloat16, (2 * c, c))
+    _cuda.check_cuda_tensor("wkv", wkv, x.dtype, (2 * c, c))
     _cuda.check_cuda_tensor("bkv", bkv, torch.float32, (2 * c,))
     lib = _cuda.load("swin_attn.cu")
     dev = x.device
-    qbuf = torch.empty((bn * w, c), dtype=torch.bfloat16, device=dev)
-    kvbuf = torch.empty((bn * w, 2 * c), dtype=torch.bfloat16, device=dev)
-    att = torch.empty((bn * w, c), dtype=torch.bfloat16, device=dev)
+    qbuf = torch.empty((bn * w, c), dtype=x.dtype, device=dev)
+    kvbuf = torch.empty((bn * w, 2 * c), dtype=x.dtype, device=dev)
+    att = torch.empty((bn * w, c), dtype=x.dtype, device=dev)
     out = torch.empty_like(x)
     code = lib.scp_attn_cross(
         x.data_ptr(), qs.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         wq.data_ptr(), bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(),
-        rel_bias.data_ptr(), mask.data_ptr(), mask.shape[0], wp.data_ptr(),
+        rel_bias.data_ptr(), *_mask_args(mask), wp.data_ptr(),
         bp.data_ptr(), qbuf.data_ptr(), kvbuf.data_ptr(), att.data_ptr(),
-        out.data_ptr(), bn, w, c, heads, float(eps), 1.0 / math.sqrt(c // heads),
+        out.data_ptr(), bn, w, c, heads, float(eps), 1.0 / math.sqrt(c // heads), flag,
         _cuda.stream_ptr(x),
     )
     _cuda.check(lib, code, "attn_sublayer_cross")

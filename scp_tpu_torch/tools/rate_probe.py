@@ -10,7 +10,8 @@ static KNN, once per variant, and prints bits per point:
   bf16         the main path (bf16 model, the CUDA kernels);
   bf16-knn32   as bf16, with the KNN scores kept in f32 instead of bf16;
   f32-plain    an f32 model whose Swin sublayers run their plain PyTorch
-               versions on the card (the kernels take bf16 only).
+               versions on the card: the f32 reference that chip_smoke.py's
+               phase 6 (the same model through the f32 kernels) is held to.
 
 The variants patch module attributes for the length of one encode; this
 is a probe of the rate, not a path of the codec.

@@ -165,7 +165,181 @@ def test_kernel_e_refuses_what_it_does_not_take(cuda_device):
     q = qkv(128, 64)
     with pytest.raises(ValueError):  # a bias left on the CPU
         twattn.window_attention(q, q, q, torch.zeros(4, 128, 128), mask[:, :128, :128], 0.125)
-    q16 = qkv(128, 16)
-    with pytest.raises(ValueError):  # head dim the kernel does not take
-        twattn.window_attention(q16, q16, q16, bias[:, :128, :128], mask[:, :128, :128], 0.25)
+    q264 = qkv(128, 264)
+    with pytest.raises(ValueError):  # head dim above the core's 256
+        twattn.window_attention(q264, q264, q264, bias[:, :128, :128], mask[:, :128, :128],
+                                0.0625)
+    assert not twattn.supported(128, 264) and not twattn.supported(1024, 64)
+    with pytest.raises(ValueError):  # f16 is neither of the kernel's types
+        twattn.window_attention(q.half(), q.half(), q.half(), bias[:, :128, :128], None, 0.125)
 
+
+# ---- the attention core of B, C and E, in bf16 and f32 ----------------------
+
+F32_TOL = 1e-4  # f32 on the CUDA cores, no TF32: summation order only
+
+
+def _tol(dtype):
+    return TOL if dtype == torch.bfloat16 else F32_TOL
+
+
+def _core_inputs(dev, seed, bn, h, w, hd, n_masks, dtype, layout):
+    """q, k, v as (BN, H, W, hd) views: head-major tensors, or the
+    column-strided (BN*W, 3*H*hd) projection buffer B's GEMM writes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "heads":
+        q, k, v = (torch.randn(bn, h, w, hd, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+    else:
+        c = h * hd
+        qkv = torch.randn(bn * w, 3 * c, generator=g, device=dev).to(dtype)
+        q, k, v = (qkv[:, i * c:(i + 1) * c].reshape(bn, w, h, hd).permute(0, 2, 1, 3)
+                   for i in range(3))
+    bias = torch.randn(h, w, w, generator=g, device=dev) * 0.5
+    mask = None if n_masks == 0 else torch.where(
+        torch.rand(n_masks, w, w, generator=g, device=dev) < 0.2, -100.0, 0.0)
+    return q, k, v, bias, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("layout", ["heads", "columns"])
+def test_attention_core_matches_plain_on_card(cuda_device, dtype, hd, layout):
+    bn, h, w = 5, 2, 512  # 5 windows over 2 masks: window n uses mask n % 2
+    q, k, v, bias, mask = _core_inputs(cuda_device, hd, bn, h, w, hd, 2, dtype, layout)
+    n0 = twattn.window_attention.launches
+    got = twattn.window_attention(q, k, v, bias, mask, hd ** -0.5)
+    assert twattn.window_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (bn, h, w, hd)
+    want = twattn.window_attention_plain(q, k, v, bias, mask, hd ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_masks,bn,w", [(0, 3, 128), (1, 7, 256), (2, 9, 512),
+                                          (16, 37, 512), (16, 5, 384)])
+def test_attention_core_masks_and_ragged_windows_on_card(cuda_device, dtype, n_masks, bn, w):
+    """No mask, 1, 2 and 16 masks; window counts that are no multiple of
+    the mask count or of the query-tile split."""
+    hd = 64
+    q, k, v, bias, mask = _core_inputs(cuda_device, 100 + n_masks, bn, 4, w, hd, n_masks,
+                                       dtype, "columns")
+    got = twattn.window_attention(q, k, v, bias, mask, hd ** -0.5)
+    want = twattn.window_attention_plain(q, k, v, bias, mask, hd ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_attention_core_at_head_dims_past_64_and_windows_of_64(cuda_device):
+    """Head dims that stream K and V in 64-column chunks (72, 200, 256),
+    and the 64-row window B and C admit, through the core's launcher."""
+    for hd, w in ((72, 128), (200, 128), (256, 512), (24, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, bias, mask = _core_inputs(cuda_device, hd, 3, 2, w, hd, 1, dtype, "heads")
+            out = torch.empty((3, w, 2, hd), dtype=dtype, device=cuda_device).permute(0, 2, 1, 3)
+            twattn.launch_core(q, k, v, bias, mask, hd ** -0.5, out)
+            want = twattn.window_attention_plain(q, k, v, bias, mask, hd ** -0.5)
+            torch.testing.assert_close(out.float(), want.float(), atol=_tol(dtype),
+                                       rtol=_tol(dtype))
+
+
+def _r(g, dev):
+    def r(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device=dev) * scale
+    return r
+
+
+@pytest.mark.cuda
+def test_kernel_a_in_f32_matches_plain_on_card(cuda_device):
+    r = _r(torch.Generator(device=cuda_device).manual_seed(3), cuda_device)
+    m, c, f = 1000, 256, 1024
+    args = (r(m, c), 1 + r(c, scale=0.1), r(c, scale=0.1), r(f, c, scale=0.05),
+            r(f, scale=0.05), r(c, f, scale=0.05), r(c, scale=0.05), 1e-5)
+    for act in ("gelu", "leaky"):
+        n0 = tmlp.ln_mlp_residual.launches
+        got = tmlp.ln_mlp_residual(*args, act)
+        assert tmlp.ln_mlp_residual.launches == n0 + 1 and got.dtype == torch.float32
+        torch.testing.assert_close(got, tmlp.ln_mlp_residual_plain(*args, act),
+                                   atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads,n_masks", [(4, 0), (4, 4), (8, 2), (2, 1)])
+def test_kernels_b_c_at_every_dtype_and_head_dim_on_card(cuda_device, dtype, heads, n_masks):
+    """B and C at head dims 64, 32 and 128 (C = 256), with and without a
+    mask, in both element types."""
+    r = _r(torch.Generator(device=cuda_device).manual_seed(heads + n_masks), cuda_device)
+    bn, w, c = 5, 512, 256
+    mask = None if n_masks == 0 else torch.where(
+        torch.rand(n_masks, w, w, device=cuda_device) < 0.1, -100.0, 0.0)
+    x, qs = r(bn, w, c).to(dtype), r(bn, w, c).to(dtype)
+    ln = (1 + r(c, scale=0.1), r(c, scale=0.1))
+    rel = r(heads, w, w, scale=0.2)
+    wp, bp = r(c, c, scale=0.05).to(dtype), r(c, scale=0.05)
+    tol = _tol(dtype)
+    self_args = (x, *ln, r(3 * c, c, scale=0.05).to(dtype), r(3 * c, scale=0.05), rel, mask,
+                 wp, bp, heads, 1e-5)
+    torch.testing.assert_close(tswin.attn_sublayer_self(*self_args).float(),
+                               tswin.attn_sublayer_self_plain(*self_args).float(),
+                               atol=tol, rtol=tol)
+    cross_args = (x, qs, *ln, r(c, c, scale=0.05).to(dtype), r(c, scale=0.05),
+                  r(2 * c, c, scale=0.05).to(dtype), r(2 * c, scale=0.05), rel, mask, wp, bp,
+                  heads, 1e-5)
+    torch.testing.assert_close(tswin.attn_sublayer_cross(*cross_args).float(),
+                               tswin.attn_sublayer_cross_plain(*cross_args).float(),
+                               atol=tol, rtol=tol)
+
+
+def _context(rng, n, max_level=12):
+    data = np.zeros((1, n, 4, 3), np.int32)
+    data[..., 0] = rng.integers(1, max_level, (1, n, 4))
+    data[..., 1] = rng.integers(1, 9, (1, n, 4))
+    data[..., 2] = rng.integers(0, 255, (1, n, 4))
+    data[:, :, 3, 2] = 255
+    return data, rng.random((1, n, 3)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ehem_phases_through_the_kernels_match_plain_on_card(cuda_device, dtype, monkeypatch):
+    """Phase 1 and phase 2 of an EHEM with pallas_attn on, through kernels
+    A, B, C and E (stage 0 at C = 256, head dim 64, takes B and C; the
+    192-wide stages, head dim 48, take E), against the same model with
+    every sublayer on its plain version.  f32 within F32_TOL-scaled
+    logits; bf16 runs and stays finite (its roundings compound over the
+    layers, so its kernels are held one by one above)."""
+    from scp_tpu_torch.models.ehem import EHEM
+
+    torch.manual_seed(0)
+    model = EHEM(self_depths=(2, 2), cross_depths=(2, 1), embed_dim=192, num_heads=4,
+                 window_size=128, mlp_ratio=2.0, knn_k=4, static_knn=True, pallas_attn=True,
+                 dtype=dtype, device="cuda")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_((torch.randn_like(p, dtype=torch.float32) * 0.05).to(p.dtype))
+    rng = np.random.default_rng(5)
+    data, pos = (torch.from_numpy(a).to(cuda_device) for a in _context(rng, 512))
+    occ = torch.from_numpy(rng.integers(0, 255, (1, 256)).astype(np.int32)).to(cuda_device)
+
+    def phases():
+        l1, f1, f2 = model.decode_phase1(data, pos)
+        return l1, model.decode_phase2(f1, f2, occ, False)
+
+    ops = (tmlp.ln_mlp_residual, tswin.attn_sublayer_self, tswin.attn_sublayer_cross,
+           twattn.window_attention)
+    for op in ops:
+        op.launches = 0
+    got = phases()
+    assert all(op.launches > 0 for op in ops), [op.launches for op in ops]
+    monkeypatch.setattr(tmlp, "ln_mlp_residual", tmlp.ln_mlp_residual_plain)
+    monkeypatch.setattr(tswin, "attn_sublayer_self", tswin.attn_sublayer_self_plain)
+    monkeypatch.setattr(tswin, "attn_sublayer_cross", tswin.attn_sublayer_cross_plain)
+    monkeypatch.setattr(twattn, "window_attention", twattn.window_attention_plain)
+    want = phases()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)

@@ -128,8 +128,56 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing(rng):
 def test_seam_rules_are_device_independent():
     assert tswin.supported(1024, 512, 256, 4)
     assert not tswin.supported(1000, 512, 256, 4)  # padded: unfused path
-    assert not tswin.supported(1024, 512, 64, 4)  # head dim 16
+    assert not tswin.supported(1024, 512, 64, 4)  # C not a multiple of 128
     assert tmlp.supported(256, 1024) and not tmlp.supported(48, 96)
+    # scp_tpu's rule (pallas_swin.supported) without its backend test, at
+    # windows of 64-row tiles up to the core's 512 and head dims up to 256
+    for n, w, c, h in ((1024, 512, 256, 8), (1024, 512, 128, 4), (512, 64, 384, 8),
+                       (2048, 1024, 256, 4), (1024, 512, 512, 1), (1024, 512, 256, 3),
+                       (1024, 512, 384, 16), (192, 96, 256, 4)):
+        want = (n % w == 0 and c % 128 == 0 and c % h == 0 and (c // h) % 8 == 0
+                and w % 64 == 0 and w <= 512 and c // h <= 256)
+        assert tswin.supported(n, w, c, h) is want, (n, w, c, h)
+
+
+# ---- B and C's plain versions in f32 at head dim 32 ---------------------------
+
+F32_TOL = 2e-5
+
+
+@pytest.mark.parametrize("n_masks", [0, 1, 3])
+def test_self_and_cross_plain_match_jax_reference_f32_hd32(rng, n_masks):
+    """The plain versions against pallas_swin._reference_self / _cross
+    (their custom_vjp recompute path) in f32 at head dim 32; no mask (the
+    seam's unshifted call) against JAX's zero mask."""
+    bn, w, c, h = 3, 128, 128, 4
+    f32 = jnp.float32
+    x = jnp.asarray(rng.normal(0, 1, (bn, w, c)), f32)
+    qs = jnp.asarray(rng.normal(0, 1, (bn, w, c)), f32)
+    scale = jnp.asarray(rng.normal(1, 0.1, c), f32)
+    bias = jnp.asarray(rng.normal(0, 0.1, c), f32)
+    rel = jnp.asarray(rng.normal(0, 0.2, (h, w, w)), f32)
+    mask = np.where(rng.random((max(n_masks, 1), w, w)) < 0.1, -100.0, 0.0).astype(np.float32)
+    if n_masks == 0:
+        mask[:] = 0.0
+    jmask = jnp.asarray(mask)
+    tmask = None if n_masks == 0 else _t(mask)
+    wqkv, wq, wkv, wp = (jnp.asarray(rng.normal(0, 0.05, (c, k * c)), f32) for k in (3, 1, 2, 1))
+    bqkv, bq, bkv, bp = (jnp.asarray(rng.normal(0, 0.05, k * c), f32) for k in (3, 1, 2, 1))
+
+    def lin(wt):
+        return _t(wt).T.contiguous()
+
+    want = pallas_swin._reference_self(x, scale, bias, wqkv, bqkv, rel, jmask, wp, bp, h, 1e-5)
+    got = tswin.attn_sublayer_self(_t(x), _t(scale), _t(bias), lin(wqkv), _t(bqkv), _t(rel),
+                                   tmask, lin(wp), _t(bp), h, 1e-5)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL, rtol=F32_TOL)
+    want = pallas_swin._reference_cross(x, qs, scale, bias, wq, bq, wkv, bkv, rel, jmask, wp,
+                                        bp, h, 1e-5)
+    got = tswin.attn_sublayer_cross(_t(x), _t(qs), _t(scale), _t(bias), lin(wq), _t(bq),
+                                    lin(wkv), _t(bkv), _t(rel), tmask, lin(wp), _t(bp), h, 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL, rtol=F32_TOL)
 
 
 # ---- KNN ----------------------------------------------------------------------

@@ -135,6 +135,33 @@ def test_narrow_ehem_with_both_switches_matches_jax(jax_kernels_on_cpu):
     assert calls["attn"] == 3 and calls["jax_attn"] >= 7
 
 
+def test_f32_ehem_with_attention_switch_at_head_dim_48_matches_jax(jax_kernels_on_cpu):
+    """EHEM(dtype=float32, pallas_attn=True) against JAX f32 with
+    SCP_PALLAS_ATTN=1: stage 0 (C = 256, head dim 64) takes the fused B/C
+    seam in the port, the 192-wide stages (head dim 48, which the earlier
+    two-pass kernel refused) take E on both sides."""
+    cfg = dict(CFG, embed_dim=192)
+    rng = np.random.default_rng(23)
+    jm = JEHEM(**cfg)
+    variables = random_variables(rng, jm)
+    tm = weights.load_into(TEHEM(**cfg, static_knn=True, pallas_attn=True, device="cpu"),
+                           variables)
+    assert tm.dtype == torch.float32
+    data, pos = random_context(rng, 1, 512)
+    occ = rng.integers(0, 255, (1, 256)).astype(np.int32)
+    l1, f1, l2 = _phases(jm, variables, data, pos, occ)
+    t1, tf1, tf2 = tm.decode_phase1(torch.from_numpy(data), torch.from_numpy(pos))
+    t2 = tm.decode_phase2(tf1, tf2, torch.from_numpy(occ), False)
+    _close(t1, l1)
+    _close(tf1, f1)
+    _close(t2, l2)
+    calls = jax_kernels_on_cpu
+    # the port's E: self stage 1 (2 blocks) and cross stage 1 (1 block);
+    # JAX runs every block unfused on the CPU, so E at all 7 (per trace)
+    assert calls["attn"] == 3 and calls["jax_attn"] >= 7
+    assert calls["knn"] == calls["jax_knn"] == 0  # 512 rows: under D's threshold
+
+
 def test_full_width_checkpoint_with_both_switches_matches_jax(jax_kernels_on_cpu):
     """ehem_synth_f16_sknn.npz on a 2048-node context of the bench-like
     cloud, as test_torch_models.py::test_full_width_checkpoint_logits_match_jax,

@@ -57,9 +57,34 @@ def test_cpu_tensor_takes_plain_and_counts_nothing():
 
 
 def test_seam_rule_is_jax_rule_without_backend():
-    for w, hd in ((128, 8), (512, 64), (256, 16), (64, 64), (192, 64), (512, 12)):
-        want = w >= 128 and w % 128 == 0 and hd % 8 == 0
+    """scp_tpu's rule within the core's limits (windows up to 512, head
+    dims up to 256): past them the unfused path runs on every device."""
+    for w, hd in ((128, 8), (512, 64), (256, 16), (64, 64), (192, 64), (512, 12),
+                  (384, 256), (128, 264), (1024, 64), (512, 48)):
+        want = w >= 128 and w % 128 == 0 and hd % 8 == 0 and w <= 512 and hd <= 256
         assert twattn.supported(w, hd) is want
+
+
+@pytest.mark.parametrize("hd", [8, 24, 48, 128])
+def test_plain_matches_pallas_f32_at_every_head_dim(hd):
+    """Head dims the core pads (8, 24, 48) or chunks (128), f32 as
+    tests/test_pallas_attn.py runs the Pallas kernel."""
+    q, k, v, bias, mask = _inputs(np.random.default_rng(hd), 5, 2, 128, hd, 2)
+    want = pallas_attn._fused_fwd_impl(*map(jnp.asarray, (q, k, v, bias, mask)), hd ** -0.5,
+                                       interpret=True)
+    got = twattn.window_attention_plain(*map(torch.from_numpy, (q, k, v, bias, mask)),
+                                        hd ** -0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+
+def test_no_mask_is_the_zero_mask():
+    """The seams pass None where scp_tpu passes a (1, W, W) zero mask;
+    adding 0.0 changes no logit, so both give the same bits."""
+    q, k, v, bias, _ = map(torch.from_numpy, _inputs(np.random.default_rng(4), 3, 2, 128, 32, 1))
+    zero = torch.zeros(1, 128, 128)
+    torch.testing.assert_close(twattn.window_attention(q, k, v, bias, None, 0.2),
+                               twattn.window_attention(q, k, v, bias, zero, 0.2),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("n", [512, 300])
