@@ -31,7 +31,14 @@ Phases, each printed as it ends (any failure exits non-zero):
 
 Phase 2 also holds A, B, C and E in f32 against their plain versions
 (atol = rtol = 1e-4), and times the attention core that B, C and E share
-at B's layout and token count beside scaled_dot_product_attention.
+at B's layout and token count beside scaled_dot_product_attention.  For
+A, B and C it checks that two launches give identical bits, and times
+their bf16 products alone: through the port's Hopper GEMM (B, C; A's
+fused kernel is its products) and through cuBLAS without LN or epilogue
+(`products_library_ms`, F.linear: a yardstick for the products only, so
+`library_ms` stays null).  Phase 1 reads each Hopper GEMM kernel's
+registers and spills from the ptxas -v build log and fails on a spill;
+phase 4 checks that A, B and C took the Hopper kernels on every launch.
 
 The second-to-last line is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX or scp_tpu.
@@ -42,6 +49,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +123,31 @@ def check_close(name, got, want, tol=TOL):
     if bad:
         raise AssertionError(f"{name}: {bad} elements over tolerance")
     return max_err
+
+
+def check_repeat(name, fn):
+    """Two launches on the same inputs must give identical bits: the encoder
+    and the decoder must see the same logits.  Returns the first output."""
+    got = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    say(f"  {name}: two launches bit-identical")
+    return got
+
+
+def gemm_part(name, calls, flops, library_calls):
+    """The sublayer's bf16 products through the port's GEMM kernels alone
+    (`calls`: the Hopper GEMM at the sublayer's shapes, with its LN,
+    bias and residual) and through cuBLAS without LN or epilogue
+    (`library_calls`, F.linear: a yardstick for the products, not the
+    same function); times and the GEMM's achieved TFLOP/s."""
+    ms = cuda_time_ms(lambda: [c() for c in calls], 10)
+    lib = cuda_time_ms(lambda: [c() for c in library_calls], 10)
+    say(f"  {name} GEMM part: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), cuBLAS products "
+        f"{lib:.4f} ms ({flops / lib / 1e9:.1f} TFLOP/s)")
+    return dict(gemm_ms=ms, gemm_tflops=flops / ms / 1e9, products_library_ms=lib)
 
 
 def check_knn(name, got, again, want, feats):
@@ -230,10 +263,11 @@ def core_at_b_layout(rand, n_win, w, c, h, bias, mask):
 def kernel_phase(model, gen, slices):
     """Phase 2: each kernel against its plain version; returns table rows."""
     from scp_tpu_torch.models.swin1d import _mask_tensor
-    from scp_tpu_torch.ops import knn, knn_topk, window_attn
+    from scp_tpu_torch.ops import knn, knn_topk, proj_gemm, window_attn
     from scp_tpu_torch.ops import mlp as mlp_ops
     from scp_tpu_torch.ops import swin_attn
 
+    F = torch.nn.functional
     dev = torch.device("cuda")
     c, w, h, f = 256, 512, 4, 1024
     lanes, width = 15, 8192  # the L16 cloud's largest level: one (15, 8192) call
@@ -249,18 +283,22 @@ def kernel_phase(model, gen, slices):
     x = rand(m_self, c)
     args = (x, blk.norm2.weight, blk.norm2.bias, blk.mlp1.weight, blk.mlp1.bias,
             blk.mlp2.weight, blk.mlp2.bias, 1e-5, "gelu")
-    got = mlp_ops.ln_mlp_residual(*args)
-    torch.cuda.synchronize()
+    got = check_repeat("A ln_mlp_residual (gelu)", lambda: mlp_ops.ln_mlp_residual(*args))
     err = check_close("A ln_mlp_residual (gelu)", got, mlp_ops.ln_mlp_residual_plain(*args))
     ms = cuda_time_ms(lambda: mlp_ops.ln_mlp_residual(*args), 10)
     plain = cuda_time_ms(lambda: mlp_ops.ln_mlp_residual_plain(*args), 3)
     nb = 2 * m_self * c * 2 + 2 * c * f * 2 + 4 * (3 * c + f)
-    b, by = bound_ms(nb, 2 * 2 * m_self * c * f)
+    flops = 2 * 2 * m_self * c * f
+    b, by = bound_ms(nb, flops)
+    lib = cuda_time_ms(lambda: F.linear(F.linear(x, blk.mlp1.weight), blk.mlp2.weight), 10)
+    say(f"  A: {flops / ms / 1e9:.1f} TFLOP/s fused; cuBLAS products {lib:.4f} ms "
+        f"({flops / lib / 1e9:.1f} TFLOP/s)")
     rows["A"] = dict(
         name="ln_mlp_residual", route="cuda", source="scp_tpu_torch/ops/csrc/mlp.cu",
         replaces="scp_tpu/ops/pallas_mlp.py:96", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-        tokens=m_self, **f32_row("A ln_mlp_residual (gelu)", mlp_ops.ln_mlp_residual,
+        tokens=m_self, gemm_ms=ms, gemm_tflops=flops / ms / 1e9, products_library_ms=lib,
+        **f32_row("A ln_mlp_residual (gelu)", mlp_ops.ln_mlp_residual,
                                  mlp_ops.ln_mlp_residual_plain, f32_args(args), 2 * nb,
                                  2 * 2 * m_self * c * f),
     )
@@ -274,21 +312,27 @@ def kernel_phase(model, gen, slices):
         xw = rand(m_self // w, w, c)
         args = (xw, blk.norm1.weight, blk.norm1.bias, at.qkv.weight, at.qkv.bias,
                 at.rel_bias(), mask, at.proj.weight, at.proj.bias, h, 1e-5)
-        got = swin_attn.attn_sublayer_self(*args)
-        torch.cuda.synchronize()
-        errs.append(check_close(f"B attn_sublayer_self (shift {shift}, {n_masks(mask)} masks)",
-                                got, swin_attn.attn_sublayer_self_plain(*args)))
+        tag = f"B attn_sublayer_self (shift {shift}, {n_masks(mask)} masks)"
+        got = check_repeat(tag, lambda: swin_attn.attn_sublayer_self(*args))
+        errs.append(check_close(tag, got, swin_attn.attn_sublayer_self_plain(*args)))
         ms_list.append(cuda_time_ms(lambda: swin_attn.attn_sublayer_self(*args), 10))
         plain_list.append(cuda_time_ms(lambda: swin_attn.attn_sublayer_self_plain(*args), 2))
     n_win = m_self // w
     flops = 2 * m_self * c * 3 * c + 4 * n_win * w * w * c + 2 * m_self * c * c
     nb = 2 * m_self * c * 2 + 4 * c * c * 2 + h * w * w * 4 + mask.numel() * 4
     b, by = bound_ms(nb, flops)
+    x2, a2 = xw.reshape(m_self, c), rand(m_self, c)
+    ln = (blk.norm1.weight, blk.norm1.bias)
+    gemm_b = gemm_part(
+        "B", (lambda: proj_gemm.linear(x2, at.qkv.weight, at.qkv.bias, ln=ln),
+              lambda: proj_gemm.linear(a2, at.proj.weight, at.proj.bias, resid=x2)),
+        2 * m_self * c * 4 * c,
+        (lambda: F.linear(x2, at.qkv.weight), lambda: F.linear(a2, at.proj.weight)))
     rows["B"] = dict(
         name="attn_sublayer_self", route="cuda", source="scp_tpu_torch/ops/csrc/swin_attn.cu",
         replaces="scp_tpu/ops/pallas_swin.py:63", max_abs_err=max(errs), ms=ms_list[1],
         plain_ms=plain_list[1], bound_ms=b, bound_by=by, library_ms=None,
-        tokens=m_self, ms_unshifted=ms_list[0],
+        tokens=m_self, ms_unshifted=ms_list[0], **gemm_b,
         **f32_row(f"B attn_sublayer_self (shift {w // 2})", swin_attn.attn_sublayer_self,
                   swin_attn.attn_sublayer_self_plain, f32_args(args), 2 * nb, flops),
         **core_at_b_layout(rand, n_win, w, c, h, blk.attn.rel_bias(), mask),
@@ -302,20 +346,28 @@ def kernel_phase(model, gen, slices):
     args = (xw, qs, blk.norm1.weight, blk.norm1.bias, at.query.weight, at.query.bias,
             at.kv.weight, at.kv.bias, at.rel_bias(), mask, at.proj.weight, at.proj.bias,
             h, 1e-5)
-    got = swin_attn.attn_sublayer_cross(*args)
-    torch.cuda.synchronize()
-    err = check_close(f"C attn_sublayer_cross (shift {w // 2}, {mask.shape[0]} masks)",
-                      got, swin_attn.attn_sublayer_cross_plain(*args))
+    tag = f"C attn_sublayer_cross (shift {w // 2}, {mask.shape[0]} masks)"
+    got = check_repeat(tag, lambda: swin_attn.attn_sublayer_cross(*args))
+    err = check_close(tag, got, swin_attn.attn_sublayer_cross_plain(*args))
     ms = cuda_time_ms(lambda: swin_attn.attn_sublayer_cross(*args), 10)
     plain = cuda_time_ms(lambda: swin_attn.attn_sublayer_cross_plain(*args), 2)
     n_win = m_cross // w
     flops = 2 * m_cross * c * 4 * c + 4 * n_win * w * w * c
     nb = 3 * m_cross * c * 2 + 4 * c * c * 2 + h * w * w * 4 + mask.numel() * 4
     b, by = bound_ms(nb, flops)
+    x2, q2, a2 = xw.reshape(m_cross, c), qs.reshape(m_cross, c), rand(m_cross, c)
+    ln = (blk.norm1.weight, blk.norm1.bias)
+    gemm_c = gemm_part(
+        "C", (lambda: proj_gemm.linear(q2, at.query.weight, at.query.bias, ln=ln),
+              lambda: proj_gemm.linear(x2, at.kv.weight, at.kv.bias, ln=ln),
+              lambda: proj_gemm.linear(a2, at.proj.weight, at.proj.bias, resid=x2)),
+        2 * m_cross * c * 4 * c,
+        (lambda: F.linear(q2, at.query.weight), lambda: F.linear(x2, at.kv.weight),
+         lambda: F.linear(a2, at.proj.weight)))
     rows["C"] = dict(
         name="attn_sublayer_cross", route="cuda", source="scp_tpu_torch/ops/csrc/swin_attn.cu",
         replaces="scp_tpu/ops/pallas_swin.py:96", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None, tokens=m_cross,
+        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None, tokens=m_cross, **gemm_c,
         **f32_row(f"C attn_sublayer_cross (shift {w // 2})", swin_attn.attn_sublayer_cross,
                   swin_attn.attn_sublayer_cross_plain, f32_args(args), 2 * nb, flops),
     )
@@ -397,11 +449,32 @@ def kernel_phase(model, gen, slices):
     return rows
 
 
+def sm90_resources(cuda):
+    """Registers and spills of the Hopper GEMM kernels (ptxas -v, from the
+    build log); fails on any spill."""
+    rows = {}
+    for src in ("mlp.cu", "swin_attn.cu"):
+        for r in cuda.ptxas_report(src, "sm90"):
+            name = "mlp_sm90" if "mlp_sm90" in r["kernel"] else "gemm_sm90"
+            targs = re.findall(r"L[ib](\d+)", r["kernel"].split("EEEv", 1)[0])
+            rows[f"{name}<{','.join(targs)}>"] = r
+    for k, r in sorted(rows.items()):
+        say(f"  {k}: {r['registers']} registers at entry, spill stores {r['spill_stores']} B, "
+            f"spill loads {r['spill_loads']} B")
+        if r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"{k} spills registers")
+    if not rows:
+        raise AssertionError("no Hopper GEMM kernel in the build logs")
+    return rows
+
+
 def roundtrip(codec, slices, counted):
     """One cold encode and one cold decode with the lossless check; the
     kernel counts are set to 0 just before and read just after."""
     for fn in counted:
         fn.launches = 0
+        for arm in getattr(fn, "arms", {}):
+            fn.arms[arm] = 0
     torch.cuda.synchronize()
     t0 = time.time()
     stream, bits, _ = codec.encode_to_stream(slices)
@@ -450,6 +523,7 @@ def main() -> int:
     built = _cuda.build_all()
     say(f"phase 1 build: {built['seconds']:.2f} s, cold {built['cold']}, "
         f"cached {built['cached']}")
+    hopper = sm90_resources(_cuda)
 
     # ---- 3 (needed by 2). the model
     t0 = time.time()
@@ -504,6 +578,10 @@ def main() -> int:
         f"kernel launches A/B/C/D/E = {p4['launches']}")
     if p4["launches"][3] or p4["launches"][4]:
         raise AssertionError("kernels D and E launched with their switches off")
+    for k in ("A", "B", "C"):  # bf16 at C = 256: every launch on the Hopper kernels
+        if counted[k].arms["sm90"] < p4["launches"][list(counted).index(k)]:
+            raise AssertionError(f"kernel {k} left the Hopper GEMM arm: {counted[k].arms}")
+    say(f"  GEMM arms of phase 4 (A/B/C): {[counted[k].arms for k in 'ABC']}")
     if abs(p4["bpp"] - MAIN_PATH_BPP) > BPP_RTOL * MAIN_PATH_BPP:
         raise AssertionError(f"phase 4 bpp {p4['bpp']} is not within {BPP_RTOL} of "
                              f"{MAIN_PATH_BPP}")
@@ -548,6 +626,9 @@ def main() -> int:
         rows[k][key] = n
     say(f"total wall {time.time() - t_start:.1f} s")
 
+    rows["A"]["ptxas"] = {k: v for k, v in hopper.items() if k.startswith("mlp_sm90<")}
+    for k in ("B", "C"):
+        rows[k]["ptxas"] = {k2: v for k2, v in hopper.items() if k2.startswith("gemm_sm90<")}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{**{k: r[k] for k in keys}, **{k: v for k, v in r.items() if k not in keys}}

@@ -130,7 +130,13 @@ def main():
     # idle share against the unprofiled warm wall (the profiler slows the host)
     warm_ms = 1e3 * sum(e + d for e, d, _ in warm) / len(warm)
     ours = {k: sum(ms for n, ms, _ in kernels if k in n)
-            for k in ("scp::gemm_bf16", "scp::attn_core_bf16", "knn_topk", "row_sqnorm")}
+            for k in ("scp::gemm_sm90", "scp::mlp_sm90", "scp::gemm_bf16",
+                      "scp::attn_core_bf16", "knn_topk", "row_sqnorm")}
+    launches = {k: sum(c for n, _, c in kernels if k in n)
+                for k in ("scp::gemm_sm90", "scp::mlp_sm90", "scp::gemm_bf16")}
+    # the Swin sublayers' bf16 GEMMs: B/C's Hopper projection GEMM, A's
+    # fused Hopper MLP kernel, and the WMMA GEMM (shapes past K = 256)
+    ours["bf16 GEMMs + fused A"] = sum(ours[k] for k in launches)
     # B, C and E launch the same attention core; E's share is the device
     # span of its range (zero with --pallas off)
     ours["attn_core of E"] = ranges.get("window_attention", {}).get("device_span_ms", 0.0)
@@ -147,6 +153,7 @@ def main():
         "device_kernel_ms": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / warm_ms),
         "port_kernels_ms": ours,
+        "gemm_launches": launches,
         "ranges": ranges,
         "top_kernels": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in kernels[:25]],
     }
@@ -160,6 +167,7 @@ def main():
     print(f"profiled pass: wall {wall_ms:.1f} ms, kernels {device_ms:.1f} ms; warm wall "
           f"{warm_ms:.1f} ms, device idle share {out['device_idle_share']:.3f}; port kernels " + ", ".join(
               f"{k} {v:.1f} ms" for k, v in ours.items()))
+    print("GEMM launches: " + ", ".join(f"{k} x{v}" for k, v in launches.items()))
     for k, v in sorted(ranges.items(), key=lambda kv: -kv[1].get("host_ms", 0)):
         print(f"  range {k} x{v['count']}: host {v.get('host_ms', 0):.1f} ms, "
               f"device span {v.get('device_span_ms', 0):.1f} ms")

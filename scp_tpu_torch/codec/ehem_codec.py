@@ -31,6 +31,10 @@ from scp_tpu_torch.models.ehem import EHEM
 
 # the attention numerics stamped in coding_params
 ATTN_NUMERICS = "normalized"
+# the bf16 GEMMs of the Swin sublayers stamped in coding_params: the Hopper
+# wgmma kernels (ops/csrc/gemm_sm90.cuh, mlp.cu), which sum in another
+# order than the WMMA kernel before them
+GEMM_NUMERICS = "sm90"
 BACKEND = "torch-cuda"  # stream stamp of the port (the CPU path stamps torch-cpu)
 
 
@@ -265,7 +269,10 @@ class EHEMCodec:
         numerics of the kernels: weights normalized and rounded to the
         compute dtype before P.V, in every kernel (B, C and E), as the
         Pallas kernels compute them; earlier card streams, whose B/C
-        kernels rounded unnormalized weights, carry no such field."""
+        kernels rounded unnormalized weights, carry no such field.  `gemm`
+        names the Swin sublayers' bf16 GEMM kernels (wgmma on Hopper): a
+        card stream written by the WMMA kernels before them, whose sums
+        ran in another order, carries no such field and is refused."""
         return (
             f"group={self.GROUP_SIZE};"
             f"tiny={self.TINY_UNIFORM_MAX};"
@@ -276,6 +283,7 @@ class EHEMCodec:
             f"pallas_knn={1 if self.model.pallas_knn else 0};"
             f"pallas_attn={1 if self.model.pallas_attn else 0};"
             f"attn={ATTN_NUMERICS};"
+            f"gemm={GEMM_NUMERICS};"
             f"kernels={'cuda' if self.device.type == 'cuda' else 'plain'};"
             f"backend={self.backend}"
         )

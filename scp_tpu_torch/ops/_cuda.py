@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,17 +28,21 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("mlp.cu", "swin_attn.cu", "knn_topk.cu", "window_attn.cu")
-FLAGS = ["-shared", "-Xcompiler", "-fPIC", "-arch=sm_90a", "-O3", "-std=c++17"]
+# -Xptxas -v: each kernel's registers, shared memory and spills go to the
+# build log beside the library (ptxas_report)
+FLAGS = ["-shared", "-Xcompiler", "-fPIC", "-gencode=arch=compute_90a,code=sm_90a", "-O3",
+         "-std=c++17", "-Xptxas", "-v"]
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # argtypes of every exported launcher, by library
 _SIGNATURES = {
     "mlp.cu": {
-        "scp_ln_mlp_residual": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],
+        "scp_ln_mlp_residual": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _I, _P],
     },
     "swin_attn.cu": {
-        "scp_attn_self": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 4 + [_F, _F, _I, _P],
-        "scp_attn_cross": [_P] * 10 + [_I] + [_P] * 6 + [_I] * 4 + [_F, _F, _I, _P],
+        "scp_attn_self": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 4 + [_F, _F, _I, _I, _P],
+        "scp_attn_cross": [_P] * 10 + [_I] + [_P] * 6 + [_I] * 4 + [_F, _F, _I, _I, _P],
+        "scp_proj_gemm": [_P, _I, _P, _P, _F, _P, _P, _P, _I, _P] + [_I] * 6 + [_P],
     },
     "knn_topk.cu": {
         "scp_knn_topk": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
@@ -86,6 +91,40 @@ def lib_path(src: str) -> str:
     return os.path.join(BUILD_DIR, f"{os.path.splitext(src)[0]}-{_digest(src)}.so")
 
 
+def log_path(src: str) -> str:
+    """The compiler's output (ptxas -v) of the library's build."""
+    return lib_path(src)[:-3] + ".log"
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_report(src: str, name_part: str = "") -> list:
+    """[{kernel (mangled), registers, spill_stores, spill_loads, static smem
+    bytes}] of each entry of `src`'s build whose name contains
+    `name_part`, read from its build log."""
+    rows = []
+    with open(log_path(src)) as fh:
+        for line in fh:
+            m = _PTXAS_ENTRY.search(line)
+            if m:
+                rows.append({"kernel": m.group(1), "registers": None, "spill_stores": None,
+                             "spill_loads": None, "smem": 0})
+                continue
+            if not rows:
+                continue
+            if (m := _PTXAS_SPILL.search(line)) and rows[-1]["spill_stores"] is None:
+                rows[-1]["spill_stores"], rows[-1]["spill_loads"] = int(m.group(1)), int(m.group(2))
+            if m := _PTXAS_USED.search(line):
+                rows[-1]["registers"] = int(m.group(1))
+                if sm := _PTXAS_SMEM.search(line):
+                    rows[-1]["smem"] = int(sm.group(1))
+    return [r for r in rows if name_part in r["kernel"]]
+
+
 def build_all(sources=SOURCES) -> dict:
     """Compile every missing library, one nvcc per source, all started
     together.  Returns {"seconds": wall, "cold": [built], "cached": [reused]}."""
@@ -103,12 +142,14 @@ def build_all(sources=SOURCES) -> dict:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     errors = []
     for src, out, tmp, proc in procs:
-        _, err = proc.communicate()
+        stdout, err = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {src} (rc {proc.returncode}):\n{err}")
             if os.path.exists(tmp):
                 os.remove(tmp)
         else:
+            with open(log_path(src), "w") as fh:
+                fh.write(stdout + err)
             os.replace(tmp, out)
     if errors:
         raise KernelBuildError("\n".join(errors))

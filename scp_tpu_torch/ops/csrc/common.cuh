@@ -1,5 +1,6 @@
-// The GEMM shared by the port's Swin-sublayer kernels A, B and C (sm_90a):
-// out = epilogue(prologue(A) @ W^T), in two element types.
+// The GEMM of the port's Swin-sublayer kernels A, B and C at the shapes
+// the Hopper kernels (gemm_sm90.cuh, mlp.cu) do not take, and in f32
+// (sm_90a): out = epilogue(prologue(A) @ W^T), in two element types.
 //
 //   * gemm_bf16: bf16 operands on the tensor cores (WMMA 16x16x16, f32
 //     accumulation).  The optional prologue is a LayerNorm of each A row
@@ -13,8 +14,9 @@
 // byte of A they read, above the H100's ~295 bf16 FLOPs/byte ridge, so a
 // tuned kernel would be tensor-core bound (f32: CUDA-core bound, 67
 // TFLOP/s).  These kernels use WMMA / FMAs without TMA or wgmma
-// pipelining; making them fast is later work.  The window attention
-// between the projections is attn_core.cuh.
+// pipelining: bf16 reaches them only at K > 256 (B, C and A's fc1 at
+// C > 256, A's fc2 there).  The window attention between the
+// projections is attn_core.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +43,36 @@ constexpr int GTHREADS = 128;  // 4 warps, each a 32x32 quadrant
 
 __device__ __forceinline__ float act_apply(float v, int act) {
     if (act == ACT_GELU) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+    if (act == ACT_LEAKY) return v >= 0.0f ? v : 0.01f * v;
+    return v;
+}
+
+// erf in f32 without branches, for the Hopper kernels (gemm_sm90.cuh,
+// mlp.cu): Eigen's generic float rational approximation on the argument
+// clamped to [-4, 4] (an odd degree-13 numerator over an even degree-8
+// denominator) and a fast division; max abs error 4.2e-7, against 2.9e-7
+// for JAX's f32 erf on the CPU (tests/test_torch_proj_gemm.py reads these
+// coefficients and checks both).  libdevice's erff branches on |x|, and a
+// warp holding both sides of the branch pays for both.
+__device__ __forceinline__ float erf_rational(float a) {
+    const float x = fminf(fmaxf(a, -4.0f), 4.0f);
+    const float x2 = x * x;
+    float p = fmaf(x2, -2.72614225801306e-10f, 2.77068142495902e-08f);
+    p = fmaf(x2, p, -2.10102402082508e-06f);
+    p = fmaf(x2, p, -5.69250639462346e-05f);
+    p = fmaf(x2, p, -7.34990630326855e-04f);
+    p = fmaf(x2, p, -2.95459980854025e-03f);
+    p = fmaf(x2, p, -1.60960333262415e-02f);
+    float q = fmaf(x2, -1.45660718464996e-05f, -2.13374055278905e-04f);
+    q = fmaf(x2, q, -1.68282697438203e-03f);
+    q = fmaf(x2, q, -7.37332916720468e-03f);
+    q = fmaf(x2, q, -1.42647390514189e-02f);
+    return __fdividef(x * p, q);
+}
+
+// act_apply with GELU through erf_rational: the Hopper kernels' epilogues
+__device__ __forceinline__ float act_sm90(float v, int act) {
+    if (act == ACT_GELU) return 0.5f * v * (1.0f + erf_rational(v * 0.70710678118654752f));
     if (act == ACT_LEAKY) return v >= 0.0f ? v : 0.01f * v;
     return v;
 }

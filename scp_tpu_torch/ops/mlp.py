@@ -8,7 +8,11 @@ params and biases f32.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version (`ln_mlp_residual_plain`, written from pallas_mlp._reference); a
-CUDA tensor launches the hand-written kernel in csrc/mlp.cu or raises.
+CUDA tensor launches the hand-written kernels in csrc/mlp.cu or raises.
+On the card `kernel_arm` picks them by dtype and shape alone: bf16 at
+C <= 256 the fused Hopper kernel ("sm90", no (M, F) intermediate), bf16
+at C > 256 two WMMA GEMM launches ("wmma"), f32 two CUDA-core GEMM
+launches ("f32").
 """
 
 from __future__ import annotations
@@ -19,12 +23,21 @@ import torch.nn.functional as F
 from scp_tpu_torch.ops import _cuda
 
 ACTS = {"gelu": 1, "leaky": 2}
+FUSED_MAX_C = 256  # csrc/mlp.cu: MLP_MAXC, the resident tile and fc2's accumulator
 
 
 def supported(c: int, f: int) -> bool:
     """Shapes the kernel tiles (64-wide output tiles, 32-deep stages);
     the same rule on every device, so CPU and card take the same seam."""
     return c % 64 == 0 and f % 64 == 0
+
+
+def kernel_arm(c: int, dtype) -> str:
+    """Which kernel a supported (C, F) shape of this dtype takes on the
+    card: "sm90" (fused), "wmma" or "f32" (two GEMM launches)."""
+    if dtype == torch.float32:
+        return "f32"
+    return "sm90" if c <= FUSED_MAX_C else "wmma"
 
 
 def _act(m: torch.Tensor, act: str) -> torch.Tensor:
@@ -69,17 +82,21 @@ def ln_mlp_residual(x, scale, bias, w1, b1, w2, b2, eps: float, act: str):
         ("b2", b2, torch.float32, (c,)),
     ):
         _cuda.check_cuda_tensor(name, t, dt, shape)
+    arm = kernel_arm(c, x.dtype)
     lib = _cuda.load("mlp.cu")
-    mid = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    mid = None if arm == "sm90" else torch.empty((m, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     code = lib.scp_ln_mlp_residual(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), mid.data_ptr(),
-        out.data_ptr(), m, c, f, float(eps), ACTS[act], flag, _cuda.stream_ptr(x),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), None if mid is None else mid.data_ptr(),
+        out.data_ptr(), m, c, f, float(eps), ACTS[act], flag, int(arm == "sm90"),
+        _cuda.stream_ptr(x),
     )
-    _cuda.check(lib, code, "ln_mlp_residual")
+    _cuda.check(lib, code, f"ln_mlp_residual ({arm})")
     ln_mlp_residual.launches += 1
+    ln_mlp_residual.arms[arm] += 1
     return out
 
 
 ln_mlp_residual.launches = 0
+ln_mlp_residual.arms = {"sm90": 0, "wmma": 0, "f32": 0}

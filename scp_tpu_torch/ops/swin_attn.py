@@ -14,7 +14,10 @@ Dispatch is by the tensor's device: a CPU tensor runs the plain version
 tensor launches the kernels of csrc/swin_attn.cu (bf16 or f32: x, the
 weights and the outputs in one of the two, LN parameters and biases f32)
 or raises.  The attention between the projections is the core of
-csrc/attn_core.cuh, which kernel E launches too.
+csrc/attn_core.cuh, which kernel E launches too.  The projections take
+`gemm_arm`'s GEMM: bf16 at C <= 256 the Hopper wgmma + TMA GEMM
+(csrc/gemm_sm90.cuh, "sm90"), bf16 at C > 256 the WMMA GEMM ("wmma"),
+f32 the CUDA-core GEMM ("f32").
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from scp_tpu_torch.ops import _cuda
+from scp_tpu_torch.ops import _cuda, proj_gemm
 from scp_tpu_torch.ops.window_attn import core_supported
 
 
@@ -39,6 +42,14 @@ def supported(n: int, w: int, c: int, heads: int) -> bool:
         and c % heads == 0
         and core_supported(w, c // heads)
     )
+
+
+def gemm_arm(c: int, dtype) -> str:
+    """The projection GEMM a supported sublayer of width C takes on the
+    card, by dtype and shape alone: K = C and N in {C, 2C, 3C}."""
+    if dtype == torch.float32:
+        return "f32"
+    return proj_gemm.arm(c, c)
 
 
 def _ln(x32, scale, bias, eps):
@@ -112,7 +123,7 @@ def _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads):
         ("bp", bp, torch.float32, (c,)),
     ):
         _cuda.check_cuda_tensor(name, t, dt, shape)
-    return bn, w, c, flag
+    return bn, w, c, flag, gemm_arm(c, x.dtype)
 
 
 def _mask_args(mask):
@@ -125,7 +136,7 @@ def attn_sublayer_self(x, scale, bias, wqkv, bqkv, rel_bias, mask, wp, bp,
     if x.device.type == "cpu":
         return attn_sublayer_self_plain(x, scale, bias, wqkv, bqkv, rel_bias, mask,
                                         wp, bp, heads, eps)
-    bn, w, c, flag = _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads)
+    bn, w, c, flag, arm = _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads)
     _cuda.check_cuda_tensor("wqkv", wqkv, x.dtype, (3 * c, c))
     _cuda.check_cuda_tensor("bqkv", bqkv, torch.float32, (3 * c,))
     lib = _cuda.load("swin_attn.cu")
@@ -138,10 +149,11 @@ def attn_sublayer_self(x, scale, bias, wqkv, bqkv, rel_bias, mask, wp, bp,
         bqkv.data_ptr(), rel_bias.data_ptr(), *_mask_args(mask),
         wp.data_ptr(), bp.data_ptr(), qkv.data_ptr(), att.data_ptr(),
         out.data_ptr(), bn, w, c, heads, float(eps), 1.0 / math.sqrt(c // heads), flag,
-        _cuda.stream_ptr(x),
+        int(arm == "sm90"), _cuda.stream_ptr(x),
     )
-    _cuda.check(lib, code, "attn_sublayer_self")
+    _cuda.check(lib, code, f"attn_sublayer_self ({arm})")
     attn_sublayer_self.launches += 1
+    attn_sublayer_self.arms[arm] += 1
     return out
 
 
@@ -151,7 +163,7 @@ def attn_sublayer_cross(x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias, mask, wp
     if x.device.type == "cpu":
         return attn_sublayer_cross_plain(x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias,
                                          mask, wp, bp, heads, eps)
-    bn, w, c, flag = _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads)
+    bn, w, c, flag, arm = _check_common(x, scale, bias, rel_bias, mask, wp, bp, heads)
     _cuda.check_cuda_tensor("qs", qs, x.dtype, (bn, w, c))
     _cuda.check_cuda_tensor("wq", wq, x.dtype, (c, c))
     _cuda.check_cuda_tensor("bq", bq, torch.float32, (c,))
@@ -169,12 +181,15 @@ def attn_sublayer_cross(x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias, mask, wp
         rel_bias.data_ptr(), *_mask_args(mask), wp.data_ptr(),
         bp.data_ptr(), qbuf.data_ptr(), kvbuf.data_ptr(), att.data_ptr(),
         out.data_ptr(), bn, w, c, heads, float(eps), 1.0 / math.sqrt(c // heads), flag,
-        _cuda.stream_ptr(x),
+        int(arm == "sm90"), _cuda.stream_ptr(x),
     )
-    _cuda.check(lib, code, "attn_sublayer_cross")
+    _cuda.check(lib, code, f"attn_sublayer_cross ({arm})")
     attn_sublayer_cross.launches += 1
+    attn_sublayer_cross.arms[arm] += 1
     return out
 
 
 attn_sublayer_self.launches = 0
 attn_sublayer_cross.launches = 0
+attn_sublayer_self.arms = {"sm90": 0, "wmma": 0, "f32": 0}
+attn_sublayer_cross.arms = {"sm90": 0, "wmma": 0, "f32": 0}

@@ -3,7 +3,8 @@ JAX package on the CPU: a cartesian (angular=False) roundtrip, whose
 positions normalize by 2^max_level, and a spherical roundtrip with the
 deepest level's level channel clipped (`lidar_clip`, what scp_tpu's CLI
 passes).  Both lossless, with the JAX codec's bits on the same cloud and
-weights.  The stream stamp's attention-numerics field is checked too."""
+weights.  The stream stamp's attention-numerics and GEMM fields are
+checked too."""
 
 import numpy as np
 import pytest
@@ -95,10 +96,16 @@ def test_stamp_names_the_attention_numerics_and_refuses_older_streams(models):
     codec = tcodec.EHEMCodec(tm, context_size=CONTEXT)
     stamp = codec.coding_params()
     assert f"attn={tcodec.ATTN_NUMERICS};" in stamp
-    # a stream written before the field existed (its B/C weights were
-    # rounded unnormalized on the card) and one with other numerics
-    older = stamp.replace(f"attn={tcodec.ATTN_NUMERICS};", "")
-    other = stamp.replace(f"attn={tcodec.ATTN_NUMERICS};", "attn=online;")
-    for bad in (older, other):
+    assert f"gemm={tcodec.GEMM_NUMERICS};" in stamp and tcodec.GEMM_NUMERICS == "sm90"
+    # a stream written before each field existed (B/C weights rounded
+    # unnormalized; the WMMA GEMMs' summation order) and ones with other
+    # numerics
+    attn, gemm = f"attn={tcodec.ATTN_NUMERICS};", f"gemm={tcodec.GEMM_NUMERICS};"
+    bad = (stamp.replace(attn, ""), stamp.replace(attn, "attn=online;"),
+           stamp.replace(gemm, ""), stamp.replace(gemm, "gemm=wmma;"),
+           stamp.replace(attn, "").replace(gemm, ""))
+    for other in bad:
+        assert other != stamp
         with pytest.raises(ValueError, match="stream coded with"):
-            codec.new_stream_decoder(b"\0" * 64, bad)
+            codec.new_stream_decoder(b"\0" * 64, other)
+    codec.new_stream_decoder(b"\0" * 64, stamp)

@@ -343,3 +343,144 @@ def test_ehem_phases_through_the_kernels_match_plain_on_card(cuda_device, dtype,
         assert torch.isfinite(a).all()
         if dtype == torch.float32:
             torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+# ---- the Hopper GEMMs: B/C's projection GEMM and A's fused kernel ----------
+
+GEMM_MS = [1, 63, 64, 65, 129, 1000, 8193]  # ragged tiles, one row, more rows than SMs x 64
+# (LN prologue, residual, activation): every epilogue the sublayers use and
+# the two activations
+GEMM_VARIANTS = [(True, False, None), (False, True, None), (True, False, "gelu"),
+                 (False, True, "leaky"), (True, True, "gelu")]
+
+
+def _gemm_args(dev, seed, m, n, k):
+    r = _r(torch.Generator(device=dev).manual_seed(seed), dev)
+    return (r(m, k).bfloat16(), r(n, k, scale=0.05).bfloat16(), r(n, scale=0.05),
+            (1 + r(k, scale=0.1), r(k, scale=0.1)), r(m, n).bfloat16())
+
+
+def _twice_and_plain(fn, plain, args, kwargs):
+    """Two launches must give identical bits (the rANS stream needs the same
+    logits on both sides); both within TOL of the plain version."""
+    got = fn(*args, **kwargs)
+    again = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), plain(*args, **kwargs).float(), atol=TOL, rtol=TOL)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", GEMM_MS)
+@pytest.mark.parametrize("n", [256, 512, 768, 1024])
+def test_proj_gemm_matches_plain_and_repeats_bitwise_on_card(cuda_device, m, n):
+    from scp_tpu_torch.ops import proj_gemm
+
+    a, w, b, ln, resid = _gemm_args(cuda_device, m + n, m, n, 256)
+    for use_ln, use_resid, act in GEMM_VARIANTS:
+        n0 = proj_gemm.linear.arms["sm90"]
+        _twice_and_plain(proj_gemm.linear, proj_gemm.linear_plain, (a, w, b),
+                         dict(act=act, ln=ln if use_ln else None,
+                              resid=resid if use_resid else None))
+        assert proj_gemm.linear.arms["sm90"] == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 128, 192])
+def test_proj_gemm_at_depths_under_256_on_card(cuda_device, k):
+    from scp_tpu_torch.ops import proj_gemm
+
+    for m, n in ((65, 64), (1000, 192), (8193, 320)):
+        a, w, b, ln, resid = _gemm_args(cuda_device, k + m, m, n, k)
+        _twice_and_plain(proj_gemm.linear, proj_gemm.linear_plain, (a, w, b),
+                         dict(act="gelu", ln=ln, resid=resid))
+
+
+@pytest.mark.cuda
+def test_proj_gemm_writes_a_column_slice_of_a_wider_buffer_on_card(cuda_device):
+    """B's qkv layout: the output a (M, C) column slice at row stride 3C;
+    the columns around it stay as they were."""
+    from scp_tpu_torch.ops import proj_gemm
+
+    m, c = 1000, 256
+    a, w, b, ln, _ = _gemm_args(cuda_device, 7, m, c, c)
+    buf = torch.full((m, 3 * c), 7.0, dtype=torch.bfloat16, device=cuda_device)
+    proj_gemm.linear(a, w, b, ln=ln, out=buf[:, c:2 * c])
+    torch.testing.assert_close(buf[:, c:2 * c].float(),
+                               proj_gemm.linear_plain(a, w, b, ln=ln).float(), atol=TOL, rtol=TOL)
+    assert (buf[:, :c] == 7.0).all() and (buf[:, 2 * c:] == 7.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [320, 384, 512])
+def test_proj_gemm_past_256_deep_keeps_the_wmma_kernel_on_card(cuda_device, k):
+    from scp_tpu_torch.ops import proj_gemm
+
+    assert proj_gemm.arm(512, k) == "wmma"
+    a, w, b, ln, resid = _gemm_args(cuda_device, k, 1000, 512, k)
+    n0 = proj_gemm.linear.arms["wmma"]
+    _twice_and_plain(proj_gemm.linear, proj_gemm.linear_plain, (a, w, b),
+                     dict(act="gelu", ln=ln, resid=resid))
+    assert proj_gemm.linear.arms["wmma"] == n0 + 2
+
+
+def _mlp_args(dev, seed, m, c, f):
+    r = _r(torch.Generator(device=dev).manual_seed(seed), dev)
+    return (r(m, c).bfloat16(), 1 + r(c, scale=0.1), r(c, scale=0.1),
+            r(f, c, scale=0.05).bfloat16(), r(f, scale=0.05),
+            r(c, f, scale=0.05).bfloat16(), r(c, scale=0.05), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", GEMM_MS)
+@pytest.mark.parametrize("f", [512, 1024])
+def test_fused_mlp_matches_plain_and_repeats_bitwise_on_card(cuda_device, m, f):
+    args = _mlp_args(cuda_device, m + f, m, 256, f)
+    for act in ("gelu", "leaky"):
+        n0 = tmlp.ln_mlp_residual.arms["sm90"]
+        _twice_and_plain(tmlp.ln_mlp_residual, tmlp.ln_mlp_residual_plain, (*args, act), {})
+        assert tmlp.ln_mlp_residual.arms["sm90"] == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,f", [(64, 256), (128, 512), (192, 384), (256, 64)])
+def test_fused_mlp_at_every_width_it_takes_on_card(cuda_device, c, f):
+    for m in (65, 1000):
+        _twice_and_plain(tmlp.ln_mlp_residual, tmlp.ln_mlp_residual_plain,
+                         (*_mlp_args(cuda_device, c + m, m, c, f), "gelu"), {})
+
+
+@pytest.mark.cuda
+def test_mlp_past_256_wide_keeps_the_wmma_kernels_on_card(cuda_device):
+    assert tmlp.kernel_arm(384, torch.bfloat16) == "wmma"
+    n0 = tmlp.ln_mlp_residual.arms["wmma"]
+    _twice_and_plain(tmlp.ln_mlp_residual, tmlp.ln_mlp_residual_plain,
+                     (*_mlp_args(cuda_device, 3, 1000, 384, 768), "gelu"), {})
+    assert tmlp.ln_mlp_residual.arms["wmma"] == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(256, 4), (384, 4)])
+def test_kernels_b_c_repeat_bitwise_on_either_gemm_arm_on_card(cuda_device, c, heads):
+    """B and C at C = 256 (the Hopper GEMM) and C = 384 (the WMMA GEMM):
+    two launches identical, within TOL of the plain versions."""
+    r = _r(torch.Generator(device=cuda_device).manual_seed(c), cuda_device)
+    bn, w = 3, 256
+    arm = tswin.gemm_arm(c, torch.bfloat16)
+    assert arm == ("sm90" if c <= 256 else "wmma")
+    mask = torch.where(torch.rand(2, w, w, device=cuda_device) < 0.1, -100.0, 0.0)
+    x, qs = r(bn, w, c).bfloat16(), r(bn, w, c).bfloat16()
+    ln = (1 + r(c, scale=0.1), r(c, scale=0.1))
+    rel = r(heads, w, w, scale=0.2)
+    wp, bp = r(c, c, scale=0.05).bfloat16(), r(c, scale=0.05)
+    n_self, n_cross = tswin.attn_sublayer_self.arms[arm], tswin.attn_sublayer_cross.arms[arm]
+    _twice_and_plain(tswin.attn_sublayer_self, tswin.attn_sublayer_self_plain,
+                     (x, *ln, r(3 * c, c, scale=0.05).bfloat16(), r(3 * c, scale=0.05), rel,
+                      mask, wp, bp, heads, 1e-5), {})
+    _twice_and_plain(tswin.attn_sublayer_cross, tswin.attn_sublayer_cross_plain,
+                     (x, qs, *ln, r(c, c, scale=0.05).bfloat16(), r(c, scale=0.05),
+                      r(2 * c, c, scale=0.05).bfloat16(), r(2 * c, scale=0.05), rel, mask, wp,
+                      bp, heads, 1e-5), {})
+    assert tswin.attn_sublayer_self.arms[arm] == n_self + 2
+    assert tswin.attn_sublayer_cross.arms[arm] == n_cross + 2
