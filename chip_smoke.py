@@ -10,8 +10,10 @@ Phases, each printed as it ends (any failure exits non-zero):
      at the main path's widths (C=256, W=512, 4 heads, F=1024) and at the
      token counts of the L16 cloud's largest level, with the EHEM
      checkpoint's own block weights; kernel D (fused KNN distance +
-     top-k) on that level's quantized positions (15, 8192, 3) and on
-     random (15, 8192, 192) features, kernel E (window attention) at its
+     top-k) on that level's quantized positions (15, 8192, 3) (its pruned
+     arm; index lists identical to the plain version's), on the same rows
+     shuffled within each lane (nothing to prune; identical lists too)
+     and on random (15, 8192, 192) features, kernel E (window attention) at its
      on-path shape (1, 4, 512, 64) and at (240, 4, 512, 64); times of
      kernel, plain version and, where one PyTorch call computes the same
      function, that call;
@@ -36,9 +38,12 @@ A, B and C it checks that two launches give identical bits, and times
 their bf16 products alone: through the port's Hopper GEMM (B, C; A's
 fused kernel is its products) and through cuBLAS without LN or epilogue
 (`products_library_ms`, F.linear: a yardstick for the products only, so
-`library_ms` stays null).  Phase 1 reads each Hopper GEMM kernel's
-registers and spills from the ptxas -v build log and fails on a spill;
-phase 4 checks that A, B and C took the Hopper kernels on every launch.
+`library_ms` stays null).  For D's pruned arm it prints the share of the
+brute-force (warp, group) pairs scored on both row orders, read from the
+kernel's counter; D's bound counts the pairs this input needed.  Phase 1
+reads the registers and spills of each Hopper GEMM kernel and of D's
+pruned arm from the ptxas -v build log and fails on a spill; phase 4
+checks that A, B and C took the Hopper kernels on every launch.
 
 The second-to-last line is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX or scp_tpu.
@@ -63,9 +68,10 @@ N_POINTS = 120_000
 LIDAR_LEVEL = 16
 TOL = 3e-2  # atol = rtol: bf16 outputs (8-bit mantissa), kernel vs plain summation order
 F32_TOL = 1e-4  # atol = rtol: f32 outputs, summation order over K <= 1024 (TF32 would miss it)
-# kernel D vs its plain version: the index lists may differ only where the
-# two sum a dot product in other orders and a near tie swaps; the exact
-# (f64) distances of both picks agree within KNN_RTOL on every row
+# kernel D vs its plain version at C > 4: the index lists may differ only
+# where the two sum a dot product in other orders and a near tie swaps; the
+# exact (f64) distances of both picks agree within KNN_RTOL on every row.
+# On positions (C = 3, the pruned arm) the lists must be identical.
 KNN_SAME_ROWS = 0.999
 KNN_RTOL = 1e-5
 BPP_RTOL = 1e-3  # phase 5 vs phase 4: f32 instead of bf16 KNN scores
@@ -150,9 +156,10 @@ def gemm_part(name, calls, flops, library_calls):
     return dict(gemm_ms=ms, gemm_tflops=flops / ms / 1e9, products_library_ms=lib)
 
 
-def check_knn(name, got, again, want, feats):
-    """Kernel D's picks against the plain version's; returns the largest
-    difference of their sorted f64 distances."""
+def check_knn(name, got, again, want, feats, min_rows=KNN_SAME_ROWS):
+    """Kernel D's picks against the plain version's: identical index lists
+    on >= min_rows of the rows; returns the largest difference of their
+    sorted f64 distances."""
     if not torch.equal(got, again):
         raise AssertionError(f"{name}: two launches on the same input differ")
     same = float((got == want).all(-1).double().mean())
@@ -166,9 +173,9 @@ def check_knn(name, got, again, want, feats):
         err = (dg - dw).abs()
         max_err = max(max_err, float(err.max()))
         bad += int((err > KNN_RTOL * dw).sum())
-    say(f"  {name}: identical index lists on {same:.6f} of rows (need >= {KNN_SAME_ROWS}), "
+    say(f"  {name}: identical index lists on {same:.6f} of rows (need >= {min_rows}), "
         f"distances over rtol {KNN_RTOL}: {bad}, max abs distance difference {max_err:.6g}")
-    if same < KNN_SAME_ROWS or bad:
+    if same < min_rows or bad:
         raise AssertionError(f"{name}: kernel picks disagree with the plain version")
     return max_err
 
@@ -373,34 +380,57 @@ def kernel_phase(model, gen, slices):
     )
 
     # ---- D: fused KNN distance + top-k, k = 20: the L16 position graph of
-    # the (15, 8192) call, then the dynamic graph's widest features
+    # the (15, 8192) call (the pruned arm), the same rows shuffled within
+    # each lane (nothing to prune), then the dynamic graph's widest
+    # features (the brute-force arm)
     k = 20
     d_shapes = {}
+    pos = level_positions(slices, lanes, width)
+    perm = torch.randperm(width, generator=gen, device=dev)
     for tag, feats in (
-        ("positions", level_positions(slices, lanes, width)),
+        ("positions", pos),
+        ("shuffled", pos[:, perm].contiguous()),
         ("c192", rand(lanes, width, 192)),
     ):
-        got = knn_topk.knn_topk(feats, k)
+        b_, n_, c_ = feats.shape
+        pruned = c_ <= knn_topk.PRUNED_MAX_C
+        stats = torch.zeros(1, dtype=torch.int64, device=dev) if pruned else None
+        got = knn_topk.knn_topk(feats, k, stats=stats)
         again = knn_topk.knn_topk(feats, k)
         want = knn_topk.knn_topk_plain(feats, k)
         torch.cuda.synchronize()
-        b_, n_, c_ = feats.shape
-        err = check_knn(f"D knn_topk {tuple(feats.shape)} {tag}", got, again, want, feats)
-        b, by = bound_ms(b_ * n_ * c_ * 2 + b_ * n_ * k * 8, 2 * b_ * n_ * n_ * c_)
+        err = check_knn(f"D knn_topk {tuple(feats.shape)} {tag}", got, again, want, feats,
+                        min_rows=1.0 if pruned else KNN_SAME_ROWS)
+        # the work this input needs: the (warp, group) pairs the pruned arm
+        # scored (8 queries x 32 keys each), every pair for the wide arm
+        total = b_ * -(-n_ // knn_topk.QPW) * -(-n_ // knn_topk.GROUP)
+        visited = int(stats) if pruned else total
+        pairs = visited * knn_topk.QPW * knn_topk.GROUP if pruned else b_ * n_ * n_
+        b, by = bound_ms(b_ * n_ * c_ * 2 + b_ * n_ * k * 8, 2 * pairs * c_)
         d_shapes[tag] = dict(
-            err=err, ms=cuda_time_ms(lambda: knn_topk.knn_topk(feats, k), 10),
-            plain=cuda_time_ms(lambda: knn_topk.knn_topk_plain(feats, k), 3),
-            main=cuda_time_ms(lambda: knn.knn_indices(feats, k), 3), bound=b, by=by,
+            err=err, ms=cuda_time_ms(lambda: knn_topk.knn_topk(feats, k), 10), bound=b, by=by,
+            visited=visited, total=total,
         )
-    dp, dw = d_shapes["positions"], d_shapes["c192"]
+        if tag != "shuffled":  # the same function of the same rows as "positions"
+            d_shapes[tag].update(
+                plain=cuda_time_ms(lambda: knn_topk.knn_topk_plain(feats, k), 3),
+                main=cuda_time_ms(lambda: knn.knn_indices(feats, k), 3))
+        if pruned:
+            say(f"  D {tag}: scored {visited} of {total} (warp, group) pairs, "
+                f"share {visited / total:.4f} of the brute-force work")
+    dp, ds, dw = d_shapes["positions"], d_shapes["shuffled"], d_shapes["c192"]
     rows["D"] = dict(
         name="knn_topk", route="cuda", source="scp_tpu_torch/ops/csrc/knn_topk.cu",
         replaces="scp_tpu/ops/pallas_knn.py:59",
-        max_abs_err=max(dp["err"], dw["err"]), ms=dp["ms"], plain_ms=dp["plain"],
+        max_abs_err=max(dp["err"], ds["err"], dw["err"]), ms=dp["ms"], plain_ms=dp["plain"],
         bound_ms=dp["bound"], bound_by=dp["by"], library_ms=None,
         library_note="no one PyTorch call computes distance + top-k (torch.cdist, then "
                      "torch.topk, is two)",
         shape=[lanes, width, 3], main_path_knn_ms=dp["main"],
+        groups_visited=dp["visited"], groups_visited_shuffled=ds["visited"],
+        groups_total=dp["total"], groups_visited_share=dp["visited"] / dp["total"],
+        groups_visited_shuffled_share=ds["visited"] / ds["total"],
+        shuffled_ms=ds["ms"], shuffled_bound_ms=ds["bound"], shuffled_bound_by=ds["by"],
         c192_shape=[lanes, width, 192], c192_ms=dw["ms"], c192_plain_ms=dw["plain"],
         c192_bound_ms=dw["bound"], c192_bound_by=dw["by"], c192_main_path_knn_ms=dw["main"],
     )
@@ -449,6 +479,19 @@ def kernel_phase(model, gen, slices):
     return rows
 
 
+def check_spills(rows, what):
+    """Prints each kernel's registers and spills; fails on a spill, or when
+    the build logs hold no kernel of `what`."""
+    for k, r in sorted(rows.items()):
+        say(f"  {k}: {r['registers']} registers at entry, spill stores {r['spill_stores']} B, "
+            f"spill loads {r['spill_loads']} B")
+        if r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"{k} spills registers")
+    if not rows:
+        raise AssertionError(f"no {what} kernel in the build logs")
+    return rows
+
+
 def sm90_resources(cuda):
     """Registers and spills of the Hopper GEMM kernels (ptxas -v, from the
     build log); fails on any spill."""
@@ -458,14 +501,21 @@ def sm90_resources(cuda):
             name = "mlp_sm90" if "mlp_sm90" in r["kernel"] else "gemm_sm90"
             targs = re.findall(r"L[ib](\d+)", r["kernel"].split("EEEv", 1)[0])
             rows[f"{name}<{','.join(targs)}>"] = r
-    for k, r in sorted(rows.items()):
-        say(f"  {k}: {r['registers']} registers at entry, spill stores {r['spill_stores']} B, "
-            f"spill loads {r['spill_loads']} B")
-        if r["spill_stores"] or r["spill_loads"]:
-            raise AssertionError(f"{k} spills registers")
-    if not rows:
-        raise AssertionError("no Hopper GEMM kernel in the build logs")
-    return rows
+    return check_spills(rows, "Hopper GEMM")
+
+
+def knn_resources(cuda):
+    """Registers and spills of kernel D's pruned arm: the search, by row
+    width in floats (4: up to 3 coordinates, 8: 4), and the pre-pass, by
+    element type and C; fails on any spill."""
+    rows = {}
+    for name in ("knn_topk_pruned", "knn_topk_boxes"):
+        for r in cuda.ptxas_report("knn_topk.cu", name):
+            targs = re.findall(r"Li(\d+)E", r["kernel"])
+            if name == "knn_topk_boxes":
+                targs.insert(0, "bf16" if "bfloat16" in r["kernel"] else "f32")
+            rows[f"{name}<{','.join(targs)}>"] = r
+    return check_spills(rows, "pruned KNN")
 
 
 def roundtrip(codec, slices, counted):
@@ -523,7 +573,7 @@ def main() -> int:
     built = _cuda.build_all()
     say(f"phase 1 build: {built['seconds']:.2f} s, cold {built['cold']}, "
         f"cached {built['cached']}")
-    hopper = sm90_resources(_cuda)
+    resources = {**sm90_resources(_cuda), **knn_resources(_cuda)}
 
     # ---- 3 (needed by 2). the model
     t0 = time.time()
@@ -553,6 +603,9 @@ def main() -> int:
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"library {lib}")
     d, e = rows["D"], rows["E"]
+    say(f"  D shuffled positions: {d['shuffled_ms']:.4f} ms, bound {d['shuffled_bound_ms']:.4f} ms; "
+        f"share of the brute-force work scored: sorted {d['groups_visited_share']:.4f}, "
+        f"shuffled {d['groups_visited_shuffled_share']:.4f}")
     say(f"  D main-path KNN (ops/knn.knn_indices) {d['main_path_knn_ms']:.4f} ms; at C=192: "
         f"kernel {d['c192_ms']:.4f}, plain {d['c192_plain_ms']:.4f}, main-path KNN "
         f"{d['c192_main_path_knn_ms']:.4f}, bound {d['c192_bound_ms']:.4f} ms")
@@ -626,9 +679,9 @@ def main() -> int:
         rows[k][key] = n
     say(f"total wall {time.time() - t_start:.1f} s")
 
-    rows["A"]["ptxas"] = {k: v for k, v in hopper.items() if k.startswith("mlp_sm90<")}
-    for k in ("B", "C"):
-        rows[k]["ptxas"] = {k2: v for k2, v in hopper.items() if k2.startswith("gemm_sm90<")}
+    for k, prefixes in (("A", ("mlp_sm90<",)), ("B", ("gemm_sm90<",)), ("C", ("gemm_sm90<",)),
+                        ("D", ("knn_topk_pruned<", "knn_topk_boxes<"))):
+        rows[k]["ptxas"] = {k2: v for k2, v in resources.items() if k2.startswith(prefixes)}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{**{k: r[k] for k in keys}, **{k: v for k, v in r.items() if k not in keys}}

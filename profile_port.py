@@ -131,7 +131,8 @@ def main():
     warm_ms = 1e3 * sum(e + d for e, d, _ in warm) / len(warm)
     ours = {k: sum(ms for n, ms, _ in kernels if k in n)
             for k in ("scp::gemm_sm90", "scp::mlp_sm90", "scp::gemm_bf16",
-                      "scp::attn_core_bf16", "knn_topk", "row_sqnorm")}
+                      "scp::attn_core_bf16", "knn_topk", "knn_topk_boxes", "knn_topk_pruned",
+                      "row_sqnorm")}
     launches = {k: sum(c for n, _, c in kernels if k in n)
                 for k in ("scp::gemm_sm90", "scp::mlp_sm90", "scp::gemm_bf16")}
     # the Swin sublayers' bf16 GEMMs: B/C's Hopper projection GEMM, A's

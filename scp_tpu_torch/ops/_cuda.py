@@ -45,7 +45,7 @@ _SIGNATURES = {
         "scp_proj_gemm": [_P, _I, _P, _P, _F, _P, _P, _P, _I, _P] + [_I] * 6 + [_P],
     },
     "knn_topk.cu": {
-        "scp_knn_topk": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
+        "scp_knn_topk": [_P, _I] + [_P] * 5 + [_I] * 4 + [_P],
     },
     "window_attn.cu": {
         "scp_window_attn": [_P, _L, _L, _L] * 4 + [_P, _P] + [_I] * 5 + [_F, _I, _P],

@@ -130,6 +130,77 @@ def test_kernel_d_refuses_what_it_does_not_take(cuda_device):
         tknn.knn_topk(feats.half(), 20)
 
 
+def _pruned_case(feats, k):
+    """Kernel D's pruned arm (C <= 4) on the card: index lists identical to
+    the plain version's, two launches identical, and the visited-groups
+    counter inside (0, brute force].  Returns the indices and the share of
+    (warp, group) pairs scored."""
+    b, n, _ = feats.shape
+    stats = torch.zeros(1, dtype=torch.int64, device=feats.device)
+    n0 = tknn.knn_topk.launches
+    got = tknn.knn_topk(feats, k, stats=stats)
+    assert tknn.knn_topk.launches == n0 + 1
+    assert torch.equal(got, tknn.knn_topk_plain(feats, k))
+    assert torch.equal(got, tknn.knn_topk(feats, k))
+    total = b * -(-n // tknn.QPW) * -(-n // tknn.GROUP)
+    assert 0 < int(stats) <= total
+    return got, int(stats) / total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("order", ["morton", "shuffled"])
+def test_kernel_d_pruned_arm_identical_on_positions(cuda_device, dtype, order):
+    """Morton-sorted quantized positions (duplicates, origin pad rows) at
+    (2, 8192 + 37, 3), and the same rows shuffled: identical lists; the
+    sorted lanes take under half of the brute-force work."""
+    from test_torch_knn_prune import cloud
+
+    n = 8192 + 37
+    feats = torch.cat([cloud(s, 3, order, dtype, n=n) for s in (0, 1)]).to(cuda_device)
+    _, share = _pruned_case(feats, 20)
+    assert share < 0.5 if order == "morton" else share > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_point", "pad_tail", "k1", "k32", "c4", "n2048"])
+def test_kernel_d_pruned_arm_edge_cases(cuda_device, case):
+    """A lane of one repeated point (the lowest columns win every tie); a
+    lane whose last 1500 rows are origin pad rows; k = 1 and k = 32; C = 4;
+    N = 2048, the fused path's smallest graph."""
+    from test_torch_knn_prune import cloud
+
+    n, c, k, order, n_pad = 8192 + 37, 3, 20, "morton", 60
+    if case == "one_point":
+        n, order = 2048 + 37, "identical"
+    elif case == "pad_tail":
+        n, n_pad = 4096, 1500
+    elif case in ("k1", "k32"):
+        k = int(case[1:])
+    elif case == "c4":
+        c = 4
+    elif case == "n2048":
+        n = 2048
+    feats = cloud(5, c, order, n=n, n_pad=n_pad).to(cuda_device)
+    got, _ = _pruned_case(feats, k)
+    if case == "one_point":
+        assert torch.equal(got[0].cpu(), torch.arange(k).expand(n, k))
+
+
+@pytest.mark.cuda
+def test_kernel_d_stats_counter_rules(cuda_device):
+    """The wide arm (C > 4) leaves the counter as it is; a counter of the
+    wrong type or size is refused."""
+    feats = torch.randn(1, 2048, 8, device=cuda_device)
+    stats = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    tknn.knn_topk(feats, 20, stats=stats)
+    assert int(stats) == 0
+    with pytest.raises(ValueError):
+        tknn.knn_topk(feats, 20, stats=stats.int())
+    with pytest.raises(ValueError):
+        tknn.knn_topk(feats, 20, stats=torch.zeros(2, dtype=torch.int64, device=cuda_device))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [32, 64])
 @pytest.mark.parametrize("n_masks", [1, 4])
