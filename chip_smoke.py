@@ -31,6 +31,29 @@ Phases, each printed as it ends (any failure exits non-zero):
      E in f32 (CUDA cores, no TF32); lossless, its bpp within 0.1% of the
      f32 figure of scp_tpu_torch/tools/rate_probe.py (plain f32 sublayers).
 
+  7. training at full width (configs/train_kitti_ehem.yaml with the
+     recipe of scp_tpu_torch/tools/train_bench_ckpt.py: batch 8 x context
+     8192, bf16, remat off, vari_data_len on, Adam + StepLR, warm from
+     ehem_synth_f16_sknn.npz, static KNN on), on shards that the port's
+     gen_shards writes under chiprun_out/ (2 training clouds of 120,000
+     points, seeds 1000-1001; 1 validation cloud, seed 5000) and removes
+     when the phase ends:
+     7a. one fixed (8, 8192) batch: the loss and every parameter's
+         gradient through the kernels against the same model with its
+         seams on their plain versions (`plain_seams`): loss within 1e-2
+         relative, every parameter a gradient, per-tensor cosine >= 0.99;
+         A, B and C on their Hopper arm on every launch of the step;
+     7b. the same check with pallas_knn and pallas_attn on, on the batch
+         cut to 2048 nodes (E runs on the padded deep stages, D builds
+         the position graph): D and E launched;
+     7c. 20 train_steps with vari_data_len: every loss finite; median
+         s/step, peak memory, the forward / backward / update shares;
+         then one profiled step at 8192 (and 7b's at 2048 for D and E):
+         each kernel's forward ms and its plain backward's ms per step;
+     7d. 10 steps on one repeated batch: the last loss below the first;
+     7e. the trained parameters through save_params_npz and the codec's
+         loader, then the L16 roundtrip: lossless (bpp printed, not gated).
+
 Phase 2 also holds A, B, C and E in f32 against their plain versions
 (atol = rtol = 1e-4), and times the attention core that B, C and E share
 at B's layout and token count beside scaled_dot_product_attention.  For
@@ -288,8 +311,9 @@ def kernel_phase(model, gen, slices):
     # ---- A: MLP sublayer, phase-1 stage 0 block 0 weights
     blk = model.swin_self.stage_0.block_0
     x = rand(m_self, c)
-    args = (x, blk.norm2.weight, blk.norm2.bias, blk.mlp1.weight, blk.mlp1.bias,
-            blk.mlp2.weight, blk.mlp2.bias, 1e-5, "gelu")
+    w1, w2 = blk.mlp1.kernel(), blk.mlp2.kernel()  # the compute-dtype casts of the f32 masters
+    args = (x, blk.norm2.weight, blk.norm2.bias, w1, blk.mlp1.bias, w2, blk.mlp2.bias, 1e-5,
+            "gelu")
     got = check_repeat("A ln_mlp_residual (gelu)", lambda: mlp_ops.ln_mlp_residual(*args))
     err = check_close("A ln_mlp_residual (gelu)", got, mlp_ops.ln_mlp_residual_plain(*args))
     ms = cuda_time_ms(lambda: mlp_ops.ln_mlp_residual(*args), 10)
@@ -297,7 +321,7 @@ def kernel_phase(model, gen, slices):
     nb = 2 * m_self * c * 2 + 2 * c * f * 2 + 4 * (3 * c + f)
     flops = 2 * 2 * m_self * c * f
     b, by = bound_ms(nb, flops)
-    lib = cuda_time_ms(lambda: F.linear(F.linear(x, blk.mlp1.weight), blk.mlp2.weight), 10)
+    lib = cuda_time_ms(lambda: F.linear(F.linear(x, w1), w2), 10)
     say(f"  A: {flops / ms / 1e9:.1f} TFLOP/s fused; cuBLAS products {lib:.4f} ms "
         f"({flops / lib / 1e9:.1f} TFLOP/s)")
     rows["A"] = dict(
@@ -317,8 +341,9 @@ def kernel_phase(model, gen, slices):
         at = blk.attn
         mask = _mask_tensor(width, w, shift, dev) if shift else None  # as the seam passes it
         xw = rand(m_self // w, w, c)
-        args = (xw, blk.norm1.weight, blk.norm1.bias, at.qkv.weight, at.qkv.bias,
-                at.rel_bias(), mask, at.proj.weight, at.proj.bias, h, 1e-5)
+        wqkv, wp = at.qkv.kernel(), at.proj.kernel()
+        args = (xw, blk.norm1.weight, blk.norm1.bias, wqkv, at.qkv.bias,
+                at.rel_bias(), mask, wp, at.proj.bias, h, 1e-5)
         tag = f"B attn_sublayer_self (shift {shift}, {n_masks(mask)} masks)"
         got = check_repeat(tag, lambda: swin_attn.attn_sublayer_self(*args))
         errs.append(check_close(tag, got, swin_attn.attn_sublayer_self_plain(*args)))
@@ -331,10 +356,10 @@ def kernel_phase(model, gen, slices):
     x2, a2 = xw.reshape(m_self, c), rand(m_self, c)
     ln = (blk.norm1.weight, blk.norm1.bias)
     gemm_b = gemm_part(
-        "B", (lambda: proj_gemm.linear(x2, at.qkv.weight, at.qkv.bias, ln=ln),
-              lambda: proj_gemm.linear(a2, at.proj.weight, at.proj.bias, resid=x2)),
+        "B", (lambda: proj_gemm.linear(x2, wqkv, at.qkv.bias, ln=ln),
+              lambda: proj_gemm.linear(a2, wp, at.proj.bias, resid=x2)),
         2 * m_self * c * 4 * c,
-        (lambda: F.linear(x2, at.qkv.weight), lambda: F.linear(a2, at.proj.weight)))
+        (lambda: F.linear(x2, wqkv), lambda: F.linear(a2, wp)))
     rows["B"] = dict(
         name="attn_sublayer_self", route="cuda", source="scp_tpu_torch/ops/csrc/swin_attn.cu",
         replaces="scp_tpu/ops/pallas_swin.py:63", max_abs_err=max(errs), ms=ms_list[1],
@@ -350,8 +375,9 @@ def kernel_phase(model, gen, slices):
     at = blk.attn
     mask = _mask_tensor(width // 2, w, w // 2, dev)
     xw, qs = rand(m_cross // w, w, c), rand(m_cross // w, w, c)
-    args = (xw, qs, blk.norm1.weight, blk.norm1.bias, at.query.weight, at.query.bias,
-            at.kv.weight, at.kv.bias, at.rel_bias(), mask, at.proj.weight, at.proj.bias,
+    wq, wkv, wp = at.query.kernel(), at.kv.kernel(), at.proj.kernel()
+    args = (xw, qs, blk.norm1.weight, blk.norm1.bias, wq, at.query.bias,
+            wkv, at.kv.bias, at.rel_bias(), mask, wp, at.proj.bias,
             h, 1e-5)
     tag = f"C attn_sublayer_cross (shift {w // 2}, {mask.shape[0]} masks)"
     got = check_repeat(tag, lambda: swin_attn.attn_sublayer_cross(*args))
@@ -365,12 +391,11 @@ def kernel_phase(model, gen, slices):
     x2, q2, a2 = xw.reshape(m_cross, c), qs.reshape(m_cross, c), rand(m_cross, c)
     ln = (blk.norm1.weight, blk.norm1.bias)
     gemm_c = gemm_part(
-        "C", (lambda: proj_gemm.linear(q2, at.query.weight, at.query.bias, ln=ln),
-              lambda: proj_gemm.linear(x2, at.kv.weight, at.kv.bias, ln=ln),
-              lambda: proj_gemm.linear(a2, at.proj.weight, at.proj.bias, resid=x2)),
+        "C", (lambda: proj_gemm.linear(q2, wq, at.query.bias, ln=ln),
+              lambda: proj_gemm.linear(x2, wkv, at.kv.bias, ln=ln),
+              lambda: proj_gemm.linear(a2, wp, at.proj.bias, resid=x2)),
         2 * m_cross * c * 4 * c,
-        (lambda: F.linear(q2, at.query.weight), lambda: F.linear(x2, at.kv.weight),
-         lambda: F.linear(a2, at.proj.weight)))
+        (lambda: F.linear(q2, wq), lambda: F.linear(x2, wkv), lambda: F.linear(a2, wp)))
     rows["C"] = dict(
         name="attn_sublayer_cross", route="cuda", source="scp_tpu_torch/ops/csrc/swin_attn.cu",
         replaces="scp_tpu/ops/pallas_swin.py:96", max_abs_err=err, ms=ms,
@@ -521,10 +546,9 @@ def knn_resources(cuda):
 def roundtrip(codec, slices, counted):
     """One cold encode and one cold decode with the lossless check; the
     kernel counts are set to 0 just before and read just after."""
-    for fn in counted:
-        fn.launches = 0
-        for arm in getattr(fn, "arms", {}):
-            fn.arms[arm] = 0
+    from scp_tpu_torch.tools.profile_train import reset_counts
+
+    reset_counts(counted)
     torch.cuda.synchronize()
     t0 = time.time()
     stream, bits, _ = codec.encode_to_stream(slices)
@@ -545,6 +569,199 @@ def roundtrip(codec, slices, counted):
         raise AssertionError(f"bad bit count {bits}")
     return dict(bpp=bpp, bytes=len(stream), encode_s=t_enc, decode_s=t_dec,
                 launches=launches)
+
+
+# ---- phase 7: training ------------------------------------------------------
+
+GRAD_COSINE = 0.99  # per-tensor cosine of the kernel step's gradients to the plain step's
+LOSS_RTOL = 1e-2  # the bf16 loss through the kernels vs through the plain versions
+
+
+def grad_check(name, model_k, model_p, batch, counted, trainer_mod):
+    """The loss and every gradient of one training step's forward +
+    backward through the kernels (model_k) and through the plain versions
+    (model_p, same weights); launches of the kernel pass only."""
+    from scp_tpu_torch.tools.profile_train import reset_counts
+
+    dev = torch.device("cuda")
+    data, pos, label = (torch.as_tensor(batch[k]).to(dev) for k in ("data", "pos", "label"))
+    results = []
+    for model, count in ((model_k, True), (model_p, False)):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        if count:
+            reset_counts(counted.values())
+        loss = trainer_mod.cross_entropy_bits(model(data, pos), label)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counted.items()}
+        results.append((float(loss.detach()), {n: p.grad for n, p in model.named_parameters()},
+                        launches))
+    (lk, gk, launches), (lp, gp, _) = results
+    if not (math.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp)):
+        raise AssertionError(f"{name}: loss {lk} through the kernels vs {lp} plain")
+    missing = [n for n, g in gk.items() if g is None or gp[n] is None]
+    if missing:
+        raise AssertionError(f"{name}: parameters without a gradient: {missing[:8]}")
+    cos = {}
+    for n, g in gk.items():
+        a, b = g.double().flatten(), gp[n].double().flatten()
+        na, nb = float(a.norm()), float(b.norm())
+        if not math.isfinite(na):
+            raise AssertionError(f"{name}: non-finite gradient of {n}")
+        cos[n] = 1.0 if na == nb == 0.0 else float(a @ b) / max(na * nb, 1e-300)
+    worst = min(cos, key=cos.get)
+    n_zero = sum(1 for g in gk.values() if not bool(g.any()))
+    say(f"  {name}: loss {lk:.6f} through the kernels, {lp:.6f} plain (rel diff "
+        f"{abs(lk - lp) / abs(lp):.3g}); {len(gk)} parameters, all with gradients "
+        f"({n_zero} all-zero); lowest gradient cosine {cos[worst]:.6f} ({worst}); "
+        f"launches A/B/C/D/E {[launches[k] for k in 'ABCDE']}")
+    if cos[worst] < GRAD_COSINE:
+        bad = sorted((c, n) for n, c in cos.items() if c < GRAD_COSINE)
+        raise AssertionError(f"{name}: gradient cosines under {GRAD_COSINE}: {bad[:8]}")
+    return dict(loss=lk, loss_plain=lp, min_cosine=cos[worst], min_cosine_param=worst,
+                launches=launches)
+
+
+def training_phase(counted, slices):
+    """Phase 7 (see the module docstring); returns its numbers."""
+    import shutil
+
+    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+    from scp_tpu_torch.models.ehem import EHEM
+    from scp_tpu_torch.tools.profile_train import profiled_step, reset_counts
+    from scp_tpu_torch.tools.train_bench_ckpt import gen_shards, recipe_config
+    from scp_tpu_torch.train import checkpoints
+    from scp_tpu_torch.train import trainer as trainer_mod
+    from scp_tpu_torch.train.data import ShardDataset
+    from scp_tpu_torch.weights import load_into
+
+    work = os.path.join(HERE, "chiprun_out", "phase7")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.time()
+        shard_dir = os.path.join(work, "shards")
+        gen_shards(shard_dir, 2, N_POINTS, LIDAR_LEVEL, seed_base=1000)
+        gen_shards(shard_dir + "_val", 1, N_POINTS, LIDAR_LEVEL, seed_base=5000)
+        cfg = recipe_config(shard_dir, 8, 8192, config_dir=os.path.join(HERE, "configs"))
+        cfg.train.load_pretrain = CKPT
+        ds = ShardDataset(cfg.data.root, 8192, 8, mode="ehem", vari_data_len=True, seed=42)
+        fixed = next(ShardDataset(cfg.data.root, 8192, 8, mode="ehem").batches())
+        val = next(ShardDataset(os.path.join(shard_dir + "_val", "*.npy"), 8192, 8,
+                                mode="ehem", seed=7).batches())
+        trainer = trainer_mod.Trainer(cfg, ds.steps_per_epoch(), device="cuda", static_knn=True)
+        trainer.init_state()
+        torch.cuda.synchronize()
+        say(f"phase 7 setup: {time.time() - t0:.2f} s, {ds.total_nodes} training nodes in "
+            f"{len(ds.files)} shards, {ds.steps_per_epoch()} steps/epoch, batch "
+            f"{fixed['data'].shape}, warm from {os.path.basename(CKPT)}")
+        out = {}
+
+        def plain_twin(**switches):
+            m = EHEM.from_config(cfg, torch.bfloat16, device="cuda", plain_seams=True,
+                                 **switches)
+            m.load_state_dict(trainer.model.state_dict())
+            return m
+
+        # 7a: the default configuration (A, B, C)
+        t0 = time.time()
+        out["7a"] = grad_check("7a gradients, default config", trainer.model,
+                               plain_twin(static_knn=True), fixed, counted, trainer_mod)
+        for k in "ABC":
+            fn = counted[k]
+            if not fn.launches or fn.arms["sm90"] != fn.launches:
+                raise AssertionError(f"7a: kernel {k} launched {fn.launches} times, arms {fn.arms}")
+        say(f"  7a: {time.time() - t0:.2f} s; Hopper arms {[counted[k].arms for k in 'ABC']}")
+
+        # 7b: pallas_knn + pallas_attn on the batch cut to 2048 nodes (D, E)
+        t0 = time.time()
+        short = {k: v[:, :2048] for k, v in fixed.items()}
+        sw = dict(static_knn=True, pallas_knn=True, pallas_attn=True)
+        model_b = EHEM.from_config(cfg, torch.bfloat16, device="cuda", **sw)
+        model_b.load_state_dict(trainer.model.state_dict())
+        out["7b"] = grad_check("7b gradients, pallas_knn + pallas_attn, 2048 nodes", model_b,
+                               plain_twin(**sw), short, counted, trainer_mod)
+        if not (out["7b"]["launches"]["D"] and out["7b"]["launches"]["E"]):
+            raise AssertionError(f"7b: D and E must launch: {out['7b']['launches']}")
+
+        def step_b():
+            model_b.zero_grad(set_to_none=True)
+            data, pos, label = (torch.as_tensor(short[k]).to("cuda")
+                                for k in ("data", "pos", "label"))
+            trainer_mod.cross_entropy_bits(model_b(data, pos), label).backward()
+
+        step_b()  # warm
+        reset_counts(counted.values())
+        out["profile_2048"] = profiled_step(step_b)
+        out["launches_2048"] = {k: fn.launches for k, fn in counted.items()}
+        del model_b
+        say(f"  7b: {time.time() - t0:.2f} s")
+
+        # 7c: 20 steps with vari_data_len
+        gen = ds.batches()
+        trainer.train_step(next(gen))  # warm (allocator, kernel loads)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses, lengths, split = [], [], [], {}
+        for _ in range(20):
+            batch = next(gen)
+            t = time.perf_counter()
+            loss = float(trainer.train_step(batch, timings=split))
+            walls.append(time.perf_counter() - t)
+            losses.append(loss)
+            lengths.append(batch["data"].shape[1])
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"7c: non-finite loss: {losses}")
+        total = sum(split.values())
+        out["7c"] = dict(median_s_per_step=float(np.median(walls)), mean_s_per_step=sum(walls) / 20,
+                         peak_memory_gb=peak / 1e9, lengths=lengths, losses=losses,
+                         shares={k: v / total for k, v in split.items()})
+        say(f"  7c: 20 steps, lengths {lengths}; losses {[round(x, 4) for x in losses]}; "
+            f"median {out['7c']['median_s_per_step']:.4f} s/step (mean "
+            f"{out['7c']['mean_s_per_step']:.4f}), peak memory {peak / 1e9:.2f} GB, shares "
+            + ", ".join(f"{k} {v:.3f}" for k, v in out["7c"]["shares"].items()))
+        t = time.perf_counter()
+        trainer.train_step(fixed)
+        torch.cuda.synchronize()
+        out["7c"]["s_per_step_8192"] = time.perf_counter() - t
+        reset_counts(counted.values())
+        out["profile_8192"] = profiled_step(lambda: trainer.train_step(fixed))
+        out["launches_8192"] = {k: fn.launches for k, fn in counted.items()}
+        say(f"  7c: one (8, 8192) step {out['7c']['s_per_step_8192']:.4f} s; launches per step "
+            f"A/B/C {[out['launches_8192'][k] for k in 'ABC']} (at 2048 with the switches, "
+            f"D/E {[out['launches_2048'][k] for k in 'DE']})")
+        for k, prof in (("A", "profile_8192"), ("B", "profile_8192"), ("C", "profile_8192"),
+                        ("D", "profile_2048"), ("E", "profile_2048")):
+            r = out[prof].get(k, {})
+            say(f"  {k} per step ({prof[8:]} nodes): forward {r.get('forward_ms')} ms "
+                f"x{r.get('forward_count')} (span {r.get('forward_span_ms')}), plain backward "
+                f"{r.get('backward_ms')} ms x{r.get('backward_count')} (span "
+                f"{r.get('backward_span_ms')})")
+
+        # 7d: one repeated batch
+        d_losses = [float(trainer.train_step(fixed)) for _ in range(10)]
+        out["7d"] = dict(losses=d_losses)
+        say(f"  7d: 10 steps on one batch, losses {[round(x, 4) for x in d_losses]}")
+        if not d_losses[-1] < d_losses[0]:
+            raise AssertionError(f"7d: the loss did not fall: {d_losses}")
+        out["val_bits_per_node"] = trainer.evaluate([val])
+        say(f"  validation (1 batch, seed 5000 cloud): {out['val_bits_per_node']:.4f} bits/node")
+
+        # 7e: the trained weights through the npz and the codec's loader
+        t0 = time.time()
+        npz = os.path.join(work, "trained.npz")
+        checkpoints.save_params_npz(npz, trainer.model)
+        coded = load_into(EHEM(static_knn=True, dtype=torch.bfloat16, device="cuda"), npz)
+        del trainer
+        torch.cuda.empty_cache()
+        p7 = roundtrip(EHEMCodec(coded, context_size=8192), slices, counted.values())
+        out["7e"] = dict(bpp=p7["bpp"], bytes=p7["bytes"])
+        say(f"  7e: trained weights -> npz -> codec: lossless, bpp={p7['bpp']:.4f}, "
+            f"bytes={p7['bytes']} ({time.time() - t0:.2f} s)")
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -595,7 +812,8 @@ def main() -> int:
     t0 = time.time()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = kernel_phase(model, gen, slices)
+    with torch.no_grad():
+        rows = kernel_phase(model, gen, slices)
     say(f"phase 2 kernels vs plain: {time.time() - t0:.2f} s")
     for k, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -677,6 +895,18 @@ def main() -> int:
         if n == 0:
             raise AssertionError(f"kernel {k} ({rows[k]['name']}) never launched on its path")
         rows[k][key] = n
+
+    # ---- 7. training at full width
+    t0 = time.time()
+    p7 = training_phase(counted, slices)
+    say(f"phase 7 training: {time.time() - t0:.2f} s")
+    for k in "ABCDE":  # per full-width training step: A, B, C at (8, 8192), D, E at (8, 2048)
+        at = "8192" if k in "ABC" else "2048"
+        prof = p7[f"profile_{at}"].get(k, {})
+        rows[k].update(train_launches=p7[f"launches_{at}"][k], train_step_nodes=[8, int(at)],
+                       train_forward_ms=prof.get("forward_ms"),
+                       train_backward_ms=prof.get("backward_ms"))
+    say(json.dumps({"training": {k: v for k, v in p7.items() if not k.startswith("profile")}}))
     say(f"total wall {time.time() - t_start:.1f} s")
 
     for k, prefixes in (("A", ("mlp_sm90<",)), ("B", ("gemm_sm90<",)), ("C", ("gemm_sm90<",)),

@@ -9,7 +9,13 @@ subpackages mirror scp_tpu's:
   models  — torch EHEM: DGCNN trunk, 1-D Swin, multiscale heads.
   ops     — KNN, the fused KNN distance + top-k, the fused Swin
             sublayers and window attention, with their Hopper kernels
-            (CUDA C++ under ops/csrc, built with nvcc at first use).
+            (CUDA C++ under ops/csrc, built with nvcc at first use), and
+            the autograd Functions that give the kernels scp_tpu's
+            custom_vjp backward.
+  train   — the single-device EHEM trainer: data pipeline, loss, Adam +
+            StepLR, checkpoints (and scp_tpu's npz format).
+  config  — the YAML config system, read without PyYAML.
+  cli, tools — the training CLI, the bench-checkpoint recipe, probes.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with
 no card and no such argument they raise instead of falling back.

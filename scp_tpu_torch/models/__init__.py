@@ -1,1 +1,1 @@
-"""Torch entropy models of the port (EHEM, inference path)."""
+"""Torch entropy models of the port (EHEM: codec inference and training)."""

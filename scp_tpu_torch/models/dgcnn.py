@@ -1,8 +1,13 @@
-"""DGCNN geometry feature extractor for EHEM, inference path (port of
+"""DGCNN geometry feature extractor for EHEM (port of
 scp_tpu/models/dgcnn.py).
 
-Training (batch-statistics BatchNorm, the fused train EdgeConv) is not
-ported yet; this module runs the folded inference BatchNorm only.
+Evaluation (the codec) folds the running BatchNorm into the gather + max.
+Training (`self.training`) normalizes with the batch statistics, in one
+of scp_tpu's two arms: the fused arm (`fused_edgeconv=True`, scp_tpu's
+default; ops/edgeconv_fused.py, stop-gradient through the statistics) or
+the explicit arm (scp_tpu's SCP_FUSED_EDGECONV=0: the f32 (B, N, k, F)
+edge tensor, BatchNorm with its full gradient).  The KNN graphs carry no
+gradient (integer indices); they are built from detached features.
 """
 
 from __future__ import annotations
@@ -10,13 +15,27 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from scp_tpu_torch.models.layers import MLP, Dense
-from scp_tpu_torch.ops.knn import knn_indices, max_over_neighbors
+from scp_tpu_torch.ops.edgeconv_fused import edgeconv_train_fused
+from scp_tpu_torch.ops.knn import gather_neighbors, knn_indices, max_over_neighbors
+
+BN_MOMENTUM = 0.9  # flax nn.BatchNorm(momentum=0.9): ra = 0.9 ra + (1 - 0.9) batch
 
 
-class BatchNormInference(nn.Module):
-    """flax BatchNorm's parameters and running statistics, read only."""
+def batch_stats(x32: torch.Tensor, dims):
+    """flax's _compute_stats (use_fast_variance): mean and the biased
+    variance E[x^2] - E[x]^2, clipped at 0, over `dims` of an f32 tensor."""
+    mu = x32.mean(dim=dims)
+    mu2 = (x32 * x32).mean(dim=dims)
+    return mu, torch.clamp(mu2 - mu * mu, min=0.0)
+
+
+class BatchNorm(nn.Module):
+    """flax BatchNorm: parameters, running statistics, the inference fold
+    and the training-mode update.  Not torch.nn.BatchNorm1d, whose running
+    variance is unbiased and whose momentum means the other weight."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -31,6 +50,17 @@ class BatchNormInference(nn.Module):
         s = self.weight / torch.sqrt(self.running_var + self.eps)
         return s, self.bias - self.running_mean * s
 
+    def normalize(self, x32, mean, var):
+        """flax's _normalize: (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+        return (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+    @torch.no_grad()
+    def update(self, mean, var):
+        """ra = 0.9 ra + (1 - 0.9) batch, for the mean and the biased variance."""
+        w = 1 - BN_MOMENTUM
+        self.running_mean.copy_(BN_MOMENTUM * self.running_mean + w * mean.detach())
+        self.running_var.copy_(BN_MOMENTUM * self.running_var + w * var.detach())
+
 
 class EdgeConv(nn.Module):
     """1x1 conv + BatchNorm + LeakyReLU(0.2) + max over neighbors.
@@ -42,18 +72,50 @@ class EdgeConv(nn.Module):
       max_k leaky(BN(gather(a) + bc)) = leaky(max_k(gather(a*s)) + (bc*s + t))
     """
 
-    def __init__(self, in_features: int, features: int, dtype=torch.float32):
+    def __init__(self, in_features: int, features: int, dtype=torch.float32,
+                 fused: bool = True, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.fused = bool(fused)
+        self.remat = bool(remat)
         self.conv = Dense(2 * in_features, features, bias=False, dtype=dtype)
-        self.bn = BatchNormInference(features)
+        self.bn = BatchNorm(features)
 
-    def forward(self, feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        kern = self.conv.weight  # (F, 2C)
+    def _project(self, feats):
+        kern = self.conv.kernel()  # (F, 2C) in the compute dtype
         c = feats.shape[-1]
         f = feats.to(self.dtype)
         a = F.linear(f, kern[:, :c])  # feats @ W1
         bc = F.linear(f, kern[:, c:] - kern[:, :c])  # feats @ (W2 - W1)
+        return a, bc
+
+    def _train(self, feats, idx):
+        """Training forward -> (out, batch mean, batch var)."""
+        a, bc = self._project(feats)
+        bn = self.bn
+        if self.fused:
+            out, mean, var = edgeconv_train_fused(a, bc, bn.weight, bn.bias, idx, bn.eps)
+            # scp_tpu updates the running statistics with a 2-sample batch
+            # whose (mean, biased var) are (mean, var): the same rounding here
+            std = torch.sqrt(var)
+            mean, var = batch_stats(torch.stack([mean + std, mean - std]), 0)
+            return out.to(self.dtype), mean, var
+        h = (gather_neighbors(a, idx) + bc[:, :, None, :]).float()  # (B, N, k, F)
+        mean, var = batch_stats(h, (0, 1, 2))
+        h = F.leaky_relu(bn.normalize(h, mean, var), 0.2)
+        return h.amax(dim=2).to(self.dtype), mean, var
+
+    def forward(self, feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            if self.remat and torch.is_grad_enabled():
+                # the statistics leave the recomputed region, so the
+                # backward's recompute cannot update them a second time
+                out, mean, var = checkpoint(self._train, feats, idx, use_reentrant=False)
+            else:
+                out, mean, var = self._train(feats, idx)
+            self.bn.update(mean, var)
+            return out
+        a, bc = self._project(feats)
         s, t = self.bn.folded()
         a = (a.float() * s).to(self.dtype)
         bc = (bc.float() * s + t).to(self.dtype)
@@ -70,21 +132,24 @@ class GeoFeatGenerator(nn.Module):
     (scp_tpu reads it from SCP_STATIC_KNN; here it is an argument, so no
     string such as "0" can turn it on by accident).  `pallas_knn` sends
     graphs of N >= 2048 rows to the fused KNN op, kernel D (scp_tpu's
-    SCP_PALLAS_KNN, an argument for the same reason)."""
+    SCP_PALLAS_KNN, an argument for the same reason); `plain_seams` sends
+    those graphs to D's plain version on any device."""
 
     def __init__(self, k: int = 20, max_level: int = 19, static_knn: bool = False,
-                 pallas_knn: bool = False, dtype=torch.float32):
+                 pallas_knn: bool = False, dtype=torch.float32, fused_edgeconv: bool = True,
+                 remat: bool = False, plain_seams: bool = False):
         super().__init__()
         self.k = k
+        self.plain_seams = bool(plain_seams)
         self.static_knn = bool(static_knn)
         self.pallas_knn = bool(pallas_knn)
         self.dtype = dtype
         self.occ_enc = nn.Embedding(256, 16)
         self.level_enc = nn.Embedding(max_level, 4)
         self.octant_enc = nn.Embedding(9, 4)
-        self.conv1 = EdgeConv(3, 64, dtype)
-        self.conv2 = EdgeConv(64 + 80, 128, dtype)
-        self.conv3 = EdgeConv(128 + 64, 256, dtype)
+        self.conv1 = EdgeConv(3, 64, dtype, fused_edgeconv, remat)
+        self.conv2 = EdgeConv(64 + 80, 128, dtype, fused_edgeconv, remat)
+        self.conv3 = EdgeConv(128 + 64, 256, dtype, fused_edgeconv, remat)
         self.mlp2 = MLP(80, [80, 64, 64], dtype=dtype)
         self.mlp3 = MLP(64, [128, 128, 128], dtype=dtype)
         self.edge_mlp1 = MLP(64 + 128 + 256, [256, 256, 256], dtype=dtype)
@@ -95,6 +160,12 @@ class GeoFeatGenerator(nn.Module):
         with scp_tpu's one-hot matmul (dgcnn.py:144-159), which has one
         nonzero per row and so returns the table value itself."""
         return emb.weight.to(self.dtype)[ids.long()]
+
+    def _knn(self, feats, k):
+        """The graph of `feats`: integer indices, no gradient (the index
+        output of top-k has none in scp_tpu either)."""
+        with torch.no_grad():
+            return knn_indices(feats.detach(), k, self.pallas_knn, self.plain_seams)
 
     def forward(self, data: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """data (B, N, 11) int: 4x(level, octant, occ) minus the current
@@ -113,15 +184,14 @@ class GeoFeatGenerator(nn.Module):
         )  # (B, N, 80)
 
         k = min(self.k, n)
-        fused = self.pallas_knn
         pos = pos.to(self.dtype)
-        idx1 = knn_indices(pos, k, fused)
+        idx1 = self._knn(pos, k)
         pos1 = self.conv1(pos, idx1)
         f2 = torch.cat([pos1, x], -1)
-        pos2 = self.conv2(f2, idx1 if self.static_knn else knn_indices(f2, k, fused))
+        pos2 = self.conv2(f2, idx1 if self.static_knn else self._knn(f2, k))
         x = self.mlp2(x)
         f3 = torch.cat([pos2, x], -1)
-        pos3 = self.conv3(f3, idx1 if self.static_knn else knn_indices(f3, k, fused))
+        pos3 = self.conv3(f3, idx1 if self.static_knn else self._knn(f3, k))
         x = self.mlp3(x)
 
         ec = self.edge_mlp1(torch.cat([pos1, pos2, pos3], -1))

@@ -1,4 +1,4 @@
-"""EHEM entropy model, inference path (port of scp_tpu/models/ehem.py).
+"""EHEM entropy model (port of scp_tpu/models/ehem.py).
 
   * GeoFeatGenerator -> 256-d per node;
   * 5-stage self Swin over the context, fused multiscale head
@@ -18,9 +18,21 @@ standing for scp_tpu's SCP_STATIC_KNN, SCP_PALLAS_KNN and SCP_PALLAS_ATTN
 (which scp_tpu reads with bool(), so "0" turns them on): the fused KNN op
 (kernel D) for graphs of N >= 2048 rows, and the fused window attention
 (kernel E) in the Swin blocks' unfused branch.  All default off.
+
+Training: `forward(data, pos)` is scp_tpu's teacher-forced `__call__`
+(ehem.py:116-131), interleaved logits (B, N, 255) in f32; BatchNorm
+follows `self.training` (a new model starts in eval mode, the codec's).
+`fused_edgeconv` picks the train EdgeConv arm (scp_tpu's
+SCP_FUSED_EDGECONV, on by default), `remat` recomputes the Swin blocks and
+EdgeConvs in the backward (nn.remat there), and `plain_seams` sends the
+kernel seams to their plain versions on any device (for holding the
+kernels against them).  The codec's entry points run in eval mode under
+no_grad whatever the model's mode.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -50,20 +62,26 @@ class EHEM(nn.Module):
         pallas_attn: bool = False,
         dtype: torch.dtype = torch.float32,
         device=None,
+        fused_edgeconv: bool = True,
+        remat: bool = False,
+        plain_seams: bool = False,
     ):
         super().__init__()
         self.static_knn = bool(static_knn)
         self.pallas_knn = bool(pallas_knn)
         self.pallas_attn = bool(pallas_attn)
+        self.token_num = token_num
         self.dtype = dtype
         self.geo = GeoFeatGenerator(knn_k, max_level, static_knn=static_knn,
-                                    pallas_knn=pallas_knn, dtype=dtype)
-        self.swin_self = SwinEncoder1D(GEO_DIM, embed_dim, tuple(self_depths), num_heads,
-                                       window_size, mlp_ratio, cross=False,
-                                       pallas_attn=pallas_attn, dtype=dtype)
-        self.swin_cross = SwinEncoder1D(GEO_DIM, embed_dim, tuple(cross_depths), num_heads,
-                                        window_size, mlp_ratio, cross=True,
-                                        pallas_attn=pallas_attn, dtype=dtype)
+                                    pallas_knn=pallas_knn, dtype=dtype,
+                                    fused_edgeconv=fused_edgeconv, remat=remat,
+                                    plain_seams=plain_seams)
+        swin = dict(num_heads=num_heads, window_size=window_size, mlp_ratio=mlp_ratio,
+                    pallas_attn=pallas_attn, dtype=dtype, remat=remat, plain_seams=plain_seams)
+        self.swin_self = SwinEncoder1D(GEO_DIM, embed_dim, tuple(self_depths), cross=False,
+                                       **swin)
+        self.swin_cross = SwinEncoder1D(GEO_DIM, embed_dim, tuple(cross_depths), cross=True,
+                                        **swin)
         ms_self = sum(self.swin_self.stage_widths)
         ms_cross = sum(self.swin_cross.stage_widths)
         self.ancient_mlp = MLP(ms_self, [1024, 512, GEO_DIM], dtype=dtype)
@@ -71,8 +89,32 @@ class EHEM(nn.Module):
         self.pre_occ_mlp = MLP(16, [16, 16, 16], dtype=dtype)
         self.pre_attn_mlp = MLP(GEO_DIM, [256, 240, 240], dtype=dtype)
         self.prob_pred_mlp2 = MLP(ms_cross + GEO_DIM, [768, 512, token_num], dtype=dtype)
-        self.requires_grad_(False)  # inference-only port
+        self.eval()
         self.to(resolve_device(device))
+
+    @staticmethod
+    def from_config(cfg, dtype=torch.float32, **switches) -> "EHEM":
+        """The model of a config (scp_tpu's EHEM.from_config); `switches`
+        are the constructor's keyword arguments that scp_tpu reads from
+        the environment (static_knn, pallas_knn, pallas_attn,
+        fused_edgeconv) or that only the port has (device, plain_seams).
+        remat comes from the config, as there."""
+        m = cfg["model"]
+        swin = m.get("swin", {}) or {}
+        train = cfg.get("train", {}) or {}
+        return EHEM(
+            token_num=m["token_num"],
+            max_level=m["max_level"],
+            self_depths=tuple(swin.get("self_depths", (4, 4, 4, 4, 2))),
+            cross_depths=tuple(swin.get("cross_depths", (2, 2, 1, 1))),
+            embed_dim=swin.get("embed_dim", 256),
+            num_heads=swin.get("num_heads", 4),
+            window_size=swin.get("window_size", 512),
+            mlp_ratio=swin.get("mlp_ratio", 4.0),
+            remat=bool(cfg.get("remat", train.get("remat", False))),
+            dtype=dtype,
+            **switches,
+        )
 
     @property
     def device(self) -> torch.device:
@@ -90,6 +132,17 @@ class EHEM(nn.Module):
             pos = torch.cat([pos, torch.zeros_like(pos[:, :1])], dim=1)
             return data, pos, True
         return data, pos, False
+
+    @contextlib.contextmanager
+    def _inference(self):
+        """Eval mode (running BatchNorm) and no gradient, restoring the mode."""
+        was = self.training
+        self.eval()
+        try:
+            with torch.no_grad():
+                yield
+        finally:
+            self.train(was)
 
     def _trunk(self, data, pos):
         """data (B, N, 4, 3) [level, octant, occ]; pos (B, N, 3).
@@ -115,9 +168,8 @@ class EHEM(nn.Module):
 
     # ---- entry points -----------------------------------------------------
 
-    @torch.no_grad()
-    def encode_probs(self, data, pos):
-        """Encode-side forward -> (logits1, logits2)."""
+    def _two_groups(self, data, pos):
+        """Both groups' logits, teacher-forced on the true group-1 symbols."""
         data, pos, padded = self._pad_even(data, pos)
         pre_occ = data[:, ::2, -1, -1]
         feat_a1, feat_a2 = self._trunk(data, pos)
@@ -127,18 +179,33 @@ class EHEM(nn.Module):
             logits2 = logits2[:, :-1]
         return logits1, logits2
 
-    @torch.no_grad()
+    def forward(self, data, pos):
+        """Training/teacher-forced forward -> interleaved logits (B, N, 255)
+        in f32; BatchNorm in the model's mode."""
+        logits1, logits2 = self._two_groups(data, pos)
+        b, n = data.shape[:2]
+        out = logits1.new_zeros((b, n, self.token_num))
+        out[:, 0::2] = logits1
+        out[:, 1::2] = logits2
+        return out
+
+    def encode_probs(self, data, pos):
+        """Encode-side forward -> (logits1, logits2)."""
+        with self._inference():
+            return self._two_groups(data, pos)
+
     def decode_phase1(self, data, pos):
         """Wavefront decode phase 1: current occupancies unknown (255)."""
-        data, pos, _ = self._pad_even(data, pos)
-        feat_a1, feat_a2 = self._trunk(data, pos)
-        logits1 = self.prob_pred_mlp1(feat_a1).float()
-        return logits1, feat_a1, feat_a2
+        with self._inference():
+            data, pos, _ = self._pad_even(data, pos)
+            feat_a1, feat_a2 = self._trunk(data, pos)
+            logits1 = self.prob_pred_mlp1(feat_a1).float()
+            return logits1, feat_a1, feat_a2
 
-    @torch.no_grad()
     def decode_phase2(self, feat_a1, feat_a2, group1_occ, trim_last: bool):
         """Phase 2 from cached trunk features + decoded group-1 symbols."""
-        logits2 = self._phase2(feat_a1, feat_a2, group1_occ)
-        if trim_last:
-            logits2 = logits2[:, :-1]
-        return logits2
+        with self._inference():
+            logits2 = self._phase2(feat_a1, feat_a2, group1_occ)
+            if trim_last:
+                logits2 = logits2[:, :-1]
+            return logits2

@@ -1,14 +1,21 @@
 """Shared building blocks of the entropy models (port of
 scp_tpu/models/layers.py).
 
-Weights follow `nn.Linear`'s layout, (out, in), and are stored in the
-model's compute dtype; biases, norms and tables stay float32 and are cast
-where the JAX package casts them (a flax Dense with dtype bf16 casts its
-kernel and bias to bf16; the fused sublayers read the float32 biases).
+Weights follow `nn.Linear`'s layout, (out, in).  Every parameter is a
+float32 master, as flax keeps them, and is cast to the model's compute
+dtype where the JAX package casts it (a flax Dense with dtype bf16 casts
+its kernel and bias to bf16 at use; the fused sublayers take the cast
+kernels and the float32 biases).  An Adam step of 1e-4 moves an f32
+master; it would round away on a bf16 weight near 1 (ulp 2^-7).  The
+rounding of an f32 master to bf16 is the one the codec always used, so
+its numbers do not move.
+
+`flax_init_` draws fresh parameters with flax's default initializers.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -38,18 +45,23 @@ def nearest_up(x: torch.Tensor, factor: int, length: int) -> torch.Tensor:
 
 
 class Dense(nn.Module):
-    """flax `nn.Dense` with a compute dtype: y = x W^T + b in `dtype`."""
+    """flax `nn.Dense` with a compute dtype: y = x W^T + b in `dtype`, from
+    an f32 master weight and bias."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.zeros(out_features, in_features, dtype=dtype))
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def kernel(self) -> torch.Tensor:
+        """The weight in the compute dtype (the cast stays on the gradient path)."""
+        return self.weight.to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight, b)
+        return F.linear(x.to(self.dtype), self.kernel(), b)
 
 
 class LayerNorm(nn.Module):
@@ -100,7 +112,7 @@ class MLP(nn.Module):
         full_len = pyramid[0].shape[1]
         layers = self._layers()
         d0 = layers[0]
-        kernel = d0.weight  # (out, in): the row blocks of flax's kernel are column blocks here
+        kernel = d0.kernel()  # (out, in): the row blocks of flax's kernel are column blocks here
         off = 0
         acc = None
         for i, p in enumerate(pyramid):
@@ -120,3 +132,41 @@ class MLP(nn.Module):
             x = F.leaky_relu(x, self.negative_slope)
             x = layer(x)
         return x
+
+
+@torch.no_grad()
+def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fresh parameters by flax's default initializers: Dense kernels
+    lecun_normal (truncated normal, std sqrt(1/fan_in) / .8796), Dense
+    biases and relative-position tables 0, embeddings normal with std
+    sqrt(1/features), norms scale 1 and bias 0, BatchNorm statistics
+    mean 0 and var 1.  Draws in module order from `generator` (on the CPU,
+    so a seed gives the same weights on every device)."""
+
+    def draw(shape, std, truncated):
+        t = torch.randn(shape, generator=generator)
+        if truncated:  # resample outside 2 std, as jax.random.truncated_normal bounds it
+            bad = t.abs() > 2
+            while bad.any():
+                t[bad] = torch.randn(int(bad.sum()), generator=generator)
+                bad = t.abs() > 2
+        return t * std
+
+    for mod in model.modules():
+        if isinstance(mod, Dense):
+            fan_in = mod.weight.shape[1]
+            mod.weight.copy_(draw(mod.weight.shape, math.sqrt(1.0 / fan_in) / .87962566103423978,
+                                  True))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.copy_(draw(mod.weight.shape, math.sqrt(1.0 / mod.weight.shape[1]), False))
+        elif isinstance(mod, LayerNorm) or hasattr(mod, "running_var"):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            if hasattr(mod, "running_var"):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+        elif hasattr(mod, "rel_pos_bias"):
+            mod.rel_pos_bias.zero_()
+    return model

@@ -21,6 +21,17 @@ where the window passes that op's rule (swin1d.py:114-131).  Each op's
 rule is scp_tpu's without the backend test, within its kernel's limits
 (windows up to 512, head dims up to 256); a shape past them takes the
 unfused plain ops on every device.
+
+Each seam is a torch.autograd.Function (ops.mlp.LnMlpResidual,
+ops.swin_attn.AttnSublayerSelf / AttnSublayerCross,
+ops.window_attn.WindowAttention): the kernel forward, the backward of
+scp_tpu's custom_vjps (autograd of the plain version).  The weights are
+cast to the compute dtype outside the Function, as scp_tpu casts them
+(swin1d.py:199-216, 256-262), so their gradients reach the f32 masters
+through the cast.  `plain_seams` sends every seam to its plain version on
+any device (for holding the kernels against it on the card).  With
+`remat`, a stage in training mode recomputes each block in the backward
+(torch.utils.checkpoint, scp_tpu's nn.remat(SwinBlock1D)).
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from scp_tpu_torch.models.layers import Dense, LayerNorm
 from scp_tpu_torch.ops import mlp as mlp_ops
@@ -61,11 +73,12 @@ def _mask_tensor(padded_len: int, window: int, shift: int, device: torch.device)
 
 class WindowAttention1D(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, cross: bool = False,
-                 pallas_attn: bool = False, dtype=torch.float32):
+                 pallas_attn: bool = False, dtype=torch.float32, plain_seams: bool = False):
         super().__init__()
         self.dim, self.num_heads, self.window_size = dim, num_heads, window_size
         self.cross = cross
         self.pallas_attn = bool(pallas_attn)
+        self.plain_seams = bool(plain_seams)
         self.dtype = dtype
         self.rel_pos_bias = nn.Parameter(torch.zeros(2 * window_size - 1, num_heads))
         if cross:
@@ -99,9 +112,9 @@ class WindowAttention1D(nn.Module):
             def heads_view(t):  # (B, nW, W, H, hd) -> (B*nW, H, W, hd), no copy
                 return t.reshape(b * nw, w, h, hd).permute(0, 2, 1, 3)
 
-            out = window_attn.window_attention(
+            out = window_attn.WindowAttention.apply(
                 heads_view(q), heads_view(k), heads_view(v), rel_bias, mask,
-                1.0 / math.sqrt(hd),
+                1.0 / math.sqrt(hd), self.plain_seams,
             )
             out = out.permute(0, 2, 1, 3).reshape(b, nw, w, self.dim)
             return self.proj(out)
@@ -111,7 +124,7 @@ class WindowAttention1D(nn.Module):
         scores = scores + rel_bias[None, None].to(dt)
         if mask is not None:
             scores = scores + mask[None, :, None].to(dt)
-        m = scores.amax(dim=-1, keepdim=True)
+        m = scores.amax(dim=-1, keepdim=True).detach()  # scp_tpu's stop_gradient
         e = torch.exp((scores - m).float()).to(dt)
         attn = e / e.float().sum(dim=-1, keepdim=True).to(dt)
         out = torch.einsum("bnhqk,bnkhd->bnqhd", attn, v)
@@ -121,13 +134,15 @@ class WindowAttention1D(nn.Module):
 class SwinBlock1D(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, mlp_ratio: float,
                  shift: int, cross: bool = False, pallas_attn: bool = False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, plain_seams: bool = False):
         super().__init__()
         self.dim, self.num_heads, self.window_size = dim, num_heads, window_size
         self.shift, self.cross = shift, cross
         self.dtype = dtype
+        self.plain_seams = bool(plain_seams)
         self.norm1 = LayerNorm(dim, EPS)
-        self.attn = WindowAttention1D(dim, num_heads, window_size, cross, pallas_attn, dtype)
+        self.attn = WindowAttention1D(dim, num_heads, window_size, cross, pallas_attn, dtype,
+                                      plain_seams)
         f = int(mlp_ratio * dim)
         self.norm2 = LayerNorm(dim, EPS)
         self.mlp1 = Dense(dim, f, dtype=dtype)
@@ -151,17 +166,17 @@ class SwinBlock1D(nn.Module):
 
             n1 = self.norm1
             if self.cross:
-                out = swin_attn.attn_sublayer_cross(
+                out = swin_attn.AttnSublayerCross.apply(
                     to_w(x), to_w(query), n1.weight, n1.bias,
-                    attn.query.weight, attn.query.bias, attn.kv.weight, attn.kv.bias,
-                    attn.rel_bias(), mask, attn.proj.weight, attn.proj.bias,
-                    self.num_heads, EPS,
+                    attn.query.kernel(), attn.query.bias, attn.kv.kernel(), attn.kv.bias,
+                    attn.rel_bias(), mask, attn.proj.kernel(), attn.proj.bias,
+                    self.num_heads, EPS, self.plain_seams,
                 )
             else:
-                out = swin_attn.attn_sublayer_self(
-                    to_w(x), n1.weight, n1.bias, attn.qkv.weight, attn.qkv.bias,
-                    attn.rel_bias(), mask, attn.proj.weight, attn.proj.bias,
-                    self.num_heads, EPS,
+                out = swin_attn.AttnSublayerSelf.apply(
+                    to_w(x), n1.weight, n1.bias, attn.qkv.kernel(), attn.qkv.bias,
+                    attn.rel_bias(), mask, attn.proj.kernel(), attn.proj.bias,
+                    self.num_heads, EPS, self.plain_seams,
                 )
             x = out.reshape(b, n, c)
             if shift:
@@ -186,10 +201,10 @@ class SwinBlock1D(nn.Module):
         f = self.mlp1.weight.shape[0]
         if mlp_ops.supported(c, f):
             n2 = self.norm2
-            y = mlp_ops.ln_mlp_residual(
+            y = mlp_ops.LnMlpResidual.apply(
                 x.reshape(b * n, c).contiguous(), n2.weight, n2.bias,
-                self.mlp1.weight, self.mlp1.bias, self.mlp2.weight, self.mlp2.bias,
-                EPS, "gelu",
+                self.mlp1.kernel(), self.mlp1.bias, self.mlp2.kernel(), self.mlp2.bias,
+                EPS, "gelu", self.plain_seams,
             )
             return y.reshape(b, n, c)
         h = self.norm2(x)
@@ -216,21 +231,28 @@ class PatchMerging1D(nn.Module):
 class SwinStage1D(nn.Module):
     def __init__(self, dim: int, out_dim: int, depth: int, num_heads: int,
                  window_size: int, mlp_ratio: float, downsample: bool,
-                 cross: bool = False, pallas_attn: bool = False, dtype=torch.float32):
+                 cross: bool = False, pallas_attn: bool = False, dtype=torch.float32,
+                 remat: bool = False, plain_seams: bool = False):
         super().__init__()
         self.depth = depth
         self.cross = cross
+        self.remat = bool(remat)
         for i in range(depth):
             self.add_module(f"block_{i}", SwinBlock1D(
                 dim, num_heads, window_size, mlp_ratio,
                 shift=0 if i % 2 == 0 else window_size // 2, cross=cross,
-                pallas_attn=pallas_attn, dtype=dtype,
+                pallas_attn=pallas_attn, dtype=dtype, plain_seams=plain_seams,
             ))
         self.merge = PatchMerging1D(dim, out_dim, dtype=dtype) if downsample else None
 
     def forward(self, x, query=None):
+        recompute = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(x, query=query)
+            block = getattr(self, f"block_{i}")
+            if recompute:
+                x = checkpoint(block, x, query, use_reentrant=False)
+            else:
+                x = block(x, query=query)
         before = x
         if self.merge is not None:
             x = self.merge(before)
@@ -246,7 +268,8 @@ class SwinEncoder1D(nn.Module):
 
     def __init__(self, in_dim: int, embed_dim: int, depths, num_heads: int,
                  window_size: int, mlp_ratio: float, cross: bool = False,
-                 pallas_attn: bool = False, dtype=torch.float32):
+                 pallas_attn: bool = False, dtype=torch.float32, remat: bool = False,
+                 plain_seams: bool = False):
         super().__init__()
         self.n_stages = len(depths)
         # widths of the returned states[1:]: what a multiscale head reads
@@ -256,7 +279,7 @@ class SwinEncoder1D(nn.Module):
             self.add_module(f"stage_{s}", SwinStage1D(
                 dim, embed_dim, depth, num_heads, window_size, mlp_ratio,
                 downsample=s < self.n_stages - 1, cross=cross, pallas_attn=pallas_attn,
-                dtype=dtype,
+                dtype=dtype, remat=remat, plain_seams=plain_seams,
             ))
 
     def forward(self, x, query=None):

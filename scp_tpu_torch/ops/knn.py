@@ -68,16 +68,18 @@ def chunked_knn(feats: torch.Tensor, k: int, sq: torch.Tensor,
     return torch.cat(out, dim=1) if len(out) > 1 else out[0]
 
 
-def knn_indices(feats: torch.Tensor, k: int, fused: bool = False) -> torch.Tensor:
+def knn_indices(feats: torch.Tensor, k: int, fused: bool = False,
+                plain: bool = False) -> torch.Tensor:
     """k nearest neighbors (squared L2, self included).
 
     feats (B, N, C) -> (B, N, k) int64 indices.  With `fused`, graphs of
-    N >= FUSED_MIN_N rows take kernel D (f32 scores); the rest keep the
-    chunked path, whose bf16 features keep bf16 scores."""
+    N >= FUSED_MIN_N rows take kernel D (f32 scores; with `plain`, D's
+    plain version on any device); the rest keep the chunked path, whose
+    bf16 features keep bf16 scores."""
     if fused and feats.shape[1] >= FUSED_MIN_N:
-        from scp_tpu_torch.ops.knn_topk import knn_topk  # imports this module
+        from scp_tpu_torch.ops import knn_topk  # imports this module
 
-        return knn_topk(feats, k)
+        return (knn_topk.knn_topk_plain if plain else knn_topk.knn_topk)(feats, k)
     sq = torch.sum(feats.float() * feats.float(), dim=-1)  # (B, N)
     return chunked_knn(feats, k, sq, feats.dtype == torch.bfloat16)
 

@@ -125,7 +125,12 @@ def knn_topk(feats: torch.Tensor, k: int, stats: torch.Tensor | None = None) -> 
     `stats`, an int64 tensor of one element on the features' device: the
     pruned arm (C <= 4) adds to it the number of (warp, group) pairs it
     scored, out of B * ceil(N / 8) * ceil(N / 32).  The indices never
-    depend on it; the C > 4 arm and the plain version leave it as it is."""
+    depend on it; the C > 4 arm and the plain version leave it as it is.
+
+    The output is integer and has no gradient (scp_tpu's kernel D has no
+    VJP either): the features must not need one."""
+    if feats.requires_grad and torch.is_grad_enabled():
+        raise ValueError("knn_topk: the features need a gradient; pass them detached")
     if feats.device.type == "cpu":
         return knn_topk_plain(feats, k)
     if feats.ndim != 3:

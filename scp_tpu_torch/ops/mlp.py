@@ -13,6 +13,12 @@ On the card `kernel_arm` picks them by dtype and shape alone: bf16 at
 C <= 256 the fused Hopper kernel ("sm90", no (M, F) intermediate), bf16
 at C > 256 two WMMA GEMM launches ("wmma"), f32 two CUDA-core GEMM
 launches ("f32").
+
+`LnMlpResidual` is the seam the Swin blocks call: a torch.autograd.Function
+whose forward is `ln_mlp_residual` (or, with `plain=True`, the plain
+version on any device) and whose backward is autograd of the plain
+version, recomputed from the saved inputs, as scp_tpu's custom_vjp does
+(pallas_mlp.py:153-175).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from scp_tpu_torch.ops import _cuda
+from scp_tpu_torch.ops.vjp import plain_vjp
 
 ACTS = {"gelu": 1, "leaky": 2}
 FUSED_MAX_C = 256  # csrc/mlp.cu: MLP_MAXC, the resident tile and fc2's accumulator
@@ -100,3 +107,20 @@ def ln_mlp_residual(x, scale, bias, w1, b1, w2, b2, eps: float, act: str):
 
 ln_mlp_residual.launches = 0
 ln_mlp_residual.arms = {"sm90": 0, "wmma": 0, "f32": 0}
+
+
+class LnMlpResidual(torch.autograd.Function):
+    """ln_mlp_residual with scp_tpu's gradient: apply(x, scale, bias, w1,
+    b1, w2, b2, eps, act, plain).  The weights arrive already cast to the
+    compute dtype, so their gradients flow back through the cast."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, eps, act, plain):
+        ctx.save_for_backward(x, scale, bias, w1, b1, w2, b2)
+        ctx.consts = (eps, act)
+        fn = ln_mlp_residual_plain if plain else ln_mlp_residual
+        return fn(x, scale, bias, w1, b1, w2, b2, eps, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(ln_mlp_residual_plain, ctx, g, *ctx.consts), None, None, None)

@@ -18,6 +18,13 @@ csrc/attn_core.cuh, which kernel E launches too.  The projections take
 `gemm_arm`'s GEMM: bf16 at C <= 256 the Hopper wgmma + TMA GEMM
 (csrc/gemm_sm90.cuh, "sm90"), bf16 at C > 256 the WMMA GEMM ("wmma"),
 f32 the CUDA-core GEMM ("f32").
+
+`AttnSublayerSelf` and `AttnSublayerCross` are the seams the Swin blocks
+call: torch.autograd.Functions whose forward is the dispatching function
+above (or, with `plain=True`, the plain version on any device) and whose
+backward is autograd of the plain version, recomputed from the saved
+inputs, as scp_tpu's custom_vjps do (pallas_swin.py:338-390).  The mask is
+a constant and gets no gradient.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from scp_tpu_torch.ops import _cuda, proj_gemm
+from scp_tpu_torch.ops.vjp import plain_vjp
 from scp_tpu_torch.ops.window_attn import core_supported
 
 
@@ -193,3 +201,36 @@ attn_sublayer_self.launches = 0
 attn_sublayer_cross.launches = 0
 attn_sublayer_self.arms = {"sm90": 0, "wmma": 0, "f32": 0}
 attn_sublayer_cross.arms = {"sm90": 0, "wmma": 0, "f32": 0}
+
+
+class AttnSublayerSelf(torch.autograd.Function):
+    """attn_sublayer_self with scp_tpu's gradient: apply(x, scale, bias,
+    wqkv, bqkv, rel_bias, mask, wp, bp, heads, eps, plain)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, wqkv, bqkv, rel_bias, mask, wp, bp, heads, eps, plain):
+        ctx.save_for_backward(x, scale, bias, wqkv, bqkv, rel_bias, mask, wp, bp)
+        ctx.consts = (heads, eps)
+        fn = attn_sublayer_self_plain if plain else attn_sublayer_self
+        return fn(x, scale, bias, wqkv, bqkv, rel_bias, mask, wp, bp, heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(attn_sublayer_self_plain, ctx, g, *ctx.consts), None, None, None)
+
+
+class AttnSublayerCross(torch.autograd.Function):
+    """attn_sublayer_cross with scp_tpu's gradient: apply(x, qs, scale,
+    bias, wq, bq, wkv, bkv, rel_bias, mask, wp, bp, heads, eps, plain)."""
+
+    @staticmethod
+    def forward(ctx, x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias, mask, wp, bp, heads, eps,
+                plain):
+        ctx.save_for_backward(x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias, mask, wp, bp)
+        ctx.consts = (heads, eps)
+        fn = attn_sublayer_cross_plain if plain else attn_sublayer_cross
+        return fn(x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias, mask, wp, bp, heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(attn_sublayer_cross_plain, ctx, g, *ctx.consts), None, None, None)

@@ -16,6 +16,12 @@ tensor launches the core of csrc/attn_core.cuh (bf16 or f32, every shape
 views (each head's hd values contiguous): the kernel reads them in place,
 and the output is laid out (BN, W, H, hd) and returned as its
 (BN, H, W, hd) view.
+
+`WindowAttention` is the seam the Swin blocks call: a
+torch.autograd.Function whose forward is `window_attention` (or, with
+`plain=True`, the plain version on any device) and whose backward is
+autograd of the plain version, recomputed from the saved inputs, as
+scp_tpu's custom_vjp does (pallas_attn.py:86-103).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from scp_tpu_torch.ops import _cuda
+from scp_tpu_torch.ops.vjp import plain_vjp
 
 MAX_WINDOW = 512  # the core keeps a query's whole score row in registers
 MAX_HEAD_DIM = 256
@@ -111,3 +118,19 @@ def window_attention(q, k, v, bias, mask, scale: float):
 
 
 window_attention.launches = 0
+
+
+class WindowAttention(torch.autograd.Function):
+    """window_attention with scp_tpu's gradient: apply(q, k, v, bias, mask,
+    scale, plain).  The mask is a constant and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, scale, plain):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.consts = (scale,)
+        fn = window_attention_plain if plain else window_attention
+        return fn(q, k, v, bias, mask, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(window_attention_plain, ctx, g, *ctx.consts), None, None)

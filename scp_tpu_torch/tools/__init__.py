@@ -1,1 +1,2 @@
-"""Measurement tools of the port (run on the card)."""
+"""Tools of the port: the bench-checkpoint training recipe and probes that
+measure on the card."""

@@ -1,0 +1,228 @@
+"""Where the time of one full-width training step goes, on the card.
+
+    python -m scp_tpu_torch.tools.profile_train [--steps 10] \
+        [--out chiprun_out/profile_train.json]
+
+Run from the root of the repository.  The recipe of chip_smoke.py phase 7
+(configs/train_kitti_ehem.yaml, batch 8 x context 8192, bf16, Adam +
+StepLR, warm from checkpoints/ehem_synth_f16_sknn.npz, static KNN on) on
+one fixed (8, 8192) batch of the port's synthetic shards (2 clouds of
+120,000 points, seeds 1000-1001, written under chiprun_out/ and removed at
+the end), with remat off and then on: the median wall of `--steps` timed
+steps, the peak memory, the forward / backward / update split, one step
+under torch.profiler with each kernel's forward and plain backward in
+named ranges (their device time summed over the step), and the device
+kernel time with its idle share against the timed wall.  Prints a summary
+and writes it as JSON to --out.  chip_smoke.py phase 7 uses
+`profiled_step` and `reset_counts` from here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+CKPT = os.path.join("checkpoints", "ehem_synth_f16_sknn.npz")
+N_POINTS, LIDAR_LEVEL = 120_000, 16  # the bench cloud's size and level
+
+
+def counted_kernels():
+    """The kernel wrappers, by letter, whose `launches` count their launches."""
+    from scp_tpu_torch.ops import knn_topk, swin_attn, window_attn
+    from scp_tpu_torch.ops import mlp as mlp_ops
+
+    return {"A": mlp_ops.ln_mlp_residual, "B": swin_attn.attn_sublayer_self,
+            "C": swin_attn.attn_sublayer_cross, "D": knn_topk.knn_topk,
+            "E": window_attn.window_attention}
+
+
+def reset_counts(counted):
+    for fn in counted:
+        fn.launches = 0
+        for arm in getattr(fn, "arms", {}):
+            fn.arms[arm] = 0
+
+
+def seam_functions():
+    """The autograd Functions of A, B, C and E: the kernel forward, the
+    plain backward."""
+    from scp_tpu_torch.ops import mlp as mlp_ops
+    from scp_tpu_torch.ops import swin_attn, window_attn
+
+    return {"A": mlp_ops.LnMlpResidual, "B": swin_attn.AttnSublayerSelf,
+            "C": swin_attn.AttnSublayerCross, "E": window_attn.WindowAttention}
+
+
+class ranged_seams:
+    """Wraps each seam Function's forward and backward (and D's launcher)
+    in a torch.profiler range named "<kernel>.forward" / ".backward"."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from scp_tpu_torch.ops import knn_topk
+
+        self.saved = []
+
+        def ranged(fn, label):
+            def wrapped(*a, **k):
+                with record_function(label):
+                    return fn(*a, **k)
+            return wrapped
+
+        for tag, cls in seam_functions().items():
+            for meth in ("forward", "backward"):
+                raw = cls.__dict__[meth]
+                self.saved.append((cls, meth, raw))
+                setattr(cls, meth, staticmethod(ranged(raw.__func__, f"{tag}.{meth}")))
+        fn = knn_topk.knn_topk
+        self.saved.append((knn_topk, "knn_topk", fn))
+        wrapped = ranged(fn, "D.forward")
+        wrapped.launches = fn.launches
+        knn_topk.knn_topk = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from scp_tpu_torch.ops import knn_topk
+
+        for owner, name, raw in reversed(self.saved):
+            if owner is knn_topk:
+                raw.launches = knn_topk.knn_topk.launches
+            setattr(owner, name, raw)
+        return False
+
+
+def profiled_step(step):
+    """One call of `step` under torch.profiler with the seams ranged: per
+    kernel and part, "<part>_span_ms", the ranges' device spans (gaps
+    included), and "<part>_kernels_ms", the device time of the kernels
+    that PyTorch ops launched inside them, each summed over the step.  A
+    hand-written kernel goes through ctypes: the profiler sees it on the
+    device but under no host op.  So "forward_ms" is the forward's span
+    (its one launch and the small ops around it) and "backward_ms" the
+    backward's kernels (the plain recompute is PyTorch ops)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with ranged_seams(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        tag, _, part = e.key.partition(".")
+        if part not in ("forward", "backward") or tag not in "ABCDE":
+            continue
+        row = out.setdefault(tag, {})
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):  # the range on the device
+            dev = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+            row[f"{part}_span_ms"] = dev / 1e3
+        else:  # the host range: the device time of the kernels its ops launched
+            dev = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+            row[f"{part}_kernels_ms"] = dev / 1e3
+            row[f"{part}_count"] = e.count
+    for row in out.values():
+        row["forward_ms"] = row.get("forward_span_ms")
+        row["backward_ms"] = row.get("backward_kernels_ms")
+    return out
+
+
+def measure(cfg, fixed, steps: int, remat: bool, counted):
+    from torch.profiler import ProfilerActivity, profile
+
+    from scp_tpu_torch.train.trainer import Trainer
+
+    cfg.remat = remat
+    trainer = Trainer(cfg, steps_per_epoch=25, device="cuda", static_knn=True)
+    trainer.init_state()
+    for _ in range(2):  # warm: allocator, kernel loads
+        trainer.train_step(fixed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, split = [], {}
+    for _ in range(steps):
+        t = time.perf_counter()
+        trainer.train_step(fixed, timings=split)
+        walls.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    reset_counts(counted.values())
+    ranges = profiled_step(lambda: trainer.train_step(fixed))
+    launches = {k: fn.launches for k, fn in counted.items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(fixed)
+        torch.cuda.synchronize()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    kernels = sorted(((e.key, dev(e) / 1e3, e.count) for e in prof.key_averages()
+                      if str(getattr(e, "device_type", "")).endswith("CUDA") and dev(e) > 0),
+                     key=lambda r: -r[1])
+    device_ms = sum(k[1] for k in kernels)
+    median = float(np.median(walls))
+    total = sum(split.values())
+    del trainer
+    torch.cuda.empty_cache()
+    return {
+        "remat": remat, "steps": steps, "median_s_per_step": median,
+        "walls_s": walls, "peak_memory_gb": peak / 1e9,
+        "shares": {k: v / total for k, v in split.items()},
+        "kernel_ranges": ranges, "launches_per_step": launches,
+        "device_kernel_ms": device_ms,
+        "device_idle_share": max(0.0, 1.0 - device_ms / (1e3 * median)),
+        "top_kernels": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in kernels[:20]],
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--out", default=os.path.join("chiprun_out", "profile_train.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train.py measures the card; no CUDA device available")
+
+    from scp_tpu_torch.tools.train_bench_ckpt import gen_shards, recipe_config
+    from scp_tpu_torch.train.data import ShardDataset
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    counted = counted_kernels()
+    work = os.path.join("chiprun_out", "profile_train")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        gen_shards(os.path.join(work, "shards"), 2, N_POINTS, LIDAR_LEVEL, seed_base=1000)
+        cfg = recipe_config(os.path.join(work, "shards"), 8, 8192)
+        cfg.train.load_pretrain = CKPT
+        fixed = next(ShardDataset(cfg.data.root, 8192, 8, mode="ehem").batches())
+        runs = [measure(cfg, fixed, args.steps, remat, counted) for remat in (False, True)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "batch": list(fixed["data"].shape[:2]), "runs": runs}
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(card)
+    for r in runs:
+        print(f"remat={r['remat']}: median {r['median_s_per_step']:.4f} s/step over {r['steps']}, "
+              f"peak {r['peak_memory_gb']:.2f} GB, shares "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["shares"].items())
+              + f"; device kernels {r['device_kernel_ms']:.1f} ms, idle share "
+              f"{r['device_idle_share']:.3f}; launches {r['launches_per_step']}")
+        for k, v in sorted(r["kernel_ranges"].items()):
+            print(f"  {k}: forward {v.get('forward_ms')} ms x{v.get('forward_count')} (span "
+                  f"{v.get('forward_span_ms')}), plain backward {v.get('backward_ms')} ms "
+                  f"x{v.get('backward_count')} (span {v.get('backward_span_ms')})")
+        for t in r["top_kernels"][:10]:
+            print(f"  kernel {t['ms']:9.2f} ms x{t['count']:5d}  {t['name'][:90]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,217 @@
+"""Single-device EHEM trainer (the twin of scp_tpu/train/trainer.py).
+
+  * loss = cross-entropy / ln 2, bits per occupancy symbol, with scp_tpu's
+    one-hot masked sum: the pad label 255 matches no class, so a pad node
+    adds 0 to the sum but still counts in the mean;
+  * Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the
+    square root) and StepLR stepped per epoch, read at the step count
+    before the update as optax.scale_by_schedule reads it;
+  * compute in the config's dtype (bf16 by default), f32 master
+    parameters and optimizer state;
+  * a checkpoint every epoch, all kept, with the archived config and a
+    metrics.jsonl of the JAX trainer's keys.
+
+The model runs the hand-written kernels in its forward (A, B, C; D and E
+with pallas_knn / pallas_attn) and scp_tpu's custom_vjp backward.  The
+data-parallel mesh and multi-host training of scp_tpu
+(train/distributed.py) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import time
+
+import torch
+import torch.nn.functional as F
+
+from scp_tpu_torch import resolve_device
+from scp_tpu_torch.config import Config, save_config
+from scp_tpu_torch.models.ehem import EHEM
+from scp_tpu_torch.models.layers import flax_init_
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+
+def make_lr_schedule(cfg, steps_per_epoch: int):
+    base = float(cfg.train.lr)
+    step_size = int(cfg.train.lr_scheduler.step_size)
+    gamma = float(cfg.train.lr_scheduler.gamma)
+
+    def schedule(step):
+        epoch = step // steps_per_epoch
+        return base * gamma ** (epoch // step_size)
+
+    return schedule
+
+
+def cross_entropy_bits(logits, labels):
+    """CE / ln 2, average bits per occupancy symbol over every node, pads
+    (label 255, no class) included as zeros.  Not F.cross_entropy with
+    ignore_index, which would drop the pads from the mean."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    j = torch.arange(logp.shape[-1], device=logp.device, dtype=labels.dtype)
+    ll = torch.where(j == labels[..., None], logp, 0.0).sum(dim=-1)
+    return -ll.mean() / math.log(2.0)
+
+
+def make_optimizer(params, lr: float) -> torch.optim.Adam:
+    """optax.adam's update: mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps)."""
+    return torch.optim.Adam(params, lr=lr, betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Trainer:
+    """`switches` are EHEM constructor arguments scp_tpu reads from the
+    environment (static_knn, pallas_knn, pallas_attn, fused_edgeconv) and
+    the port's plain_seams."""
+
+    def __init__(self, cfg: Config, steps_per_epoch: int, device=None, **switches):
+        if str(cfg.model.get("class_name", "EHEM")) != "EHEM":
+            raise NotImplementedError(
+                f"model {cfg.model.class_name}: OctAttention is not ported yet; the port "
+                "trains EHEM only")
+        self.cfg = cfg
+        self.steps_per_epoch = steps_per_epoch
+        self.device = resolve_device(device)
+        dtype = torch.bfloat16 if cfg.get("bf16", True) else torch.float32
+        self.model = EHEM.from_config(cfg, dtype, device=self.device, **switches)
+        self.schedule = make_lr_schedule(cfg, steps_per_epoch)
+        self.opt: torch.optim.Adam | None = None
+        self.step = 0
+
+    # -- init -------------------------------------------------------------
+
+    def init_state(self):
+        """Fresh parameters from the config's seed (flax's initializers),
+        warm-started from cfg.train.load_pretrain when set; a new Adam
+        state; step 0."""
+        from scp_tpu_torch.train import checkpoints as ckpt
+        from scp_tpu_torch.weights import load_into, to_variables
+
+        flax_init_(self.model, torch.Generator().manual_seed(int(self.cfg.get("seed", 42))))
+        path = self.cfg.train.get("load_pretrain")
+        if path:
+            if not str(path).endswith(".npz"):
+                raise ValueError(f"load_pretrain {path!r}: the port warm-starts from a bench "
+                                 ".npz (orbax run directories are the JAX package's)")
+            # params only, as scp_tpu: the BatchNorm statistics stay fresh
+            pre = ckpt.load_params_npz(path)["params"]  # pre-fusion q/k/v scopes fused
+            now = to_variables(self.model)
+            load_into(self.model, {**now, "params": ckpt.filter_compatible(pre, now["params"])})
+            print(f"warm-started params from {path}")
+        self.model.train()
+        self.opt = make_optimizer(self.model.parameters(), self.schedule(0))
+        self.step = 0
+
+    # -- one step ---------------------------------------------------------
+
+    def _batch(self, batch):
+        dev = self.device
+        return (torch.as_tensor(batch["data"]).to(dev, non_blocking=True),
+                torch.as_tensor(batch["pos"]).to(dev, non_blocking=True),
+                torch.as_tensor(batch["label"]).to(dev, non_blocking=True))
+
+    def train_step(self, batch, timings: dict | None = None):
+        """One Adam step on `batch`; returns the loss (a 0-d tensor on the
+        device).  With `timings`, synchronizes and adds the forward,
+        backward and update seconds to it."""
+        if self.opt is None:
+            raise RuntimeError("call init_state first")
+        t = time.perf_counter()
+        self.opt.zero_grad(set_to_none=True)
+        self.model.train()
+        data, pos, label = self._batch(batch)
+        loss = cross_entropy_bits(self.model(data, pos), label)
+        if timings is not None:
+            _sync(self.device)
+            timings["forward"] = timings.get("forward", 0.0) + time.perf_counter() - t
+            t = time.perf_counter()
+        loss.backward()
+        if timings is not None:
+            _sync(self.device)
+            timings["backward"] = timings.get("backward", 0.0) + time.perf_counter() - t
+            t = time.perf_counter()
+        lr = self.schedule(self.step)  # the count before the update, as optax reads it
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+        self.step += 1
+        if timings is not None:
+            _sync(self.device)
+            timings["update"] = timings.get("update", 0.0) + time.perf_counter() - t
+        return loss.detach()
+
+    # -- validation ---------------------------------------------------------
+
+    @torch.no_grad()
+    def evaluate(self, val_batches) -> float:
+        """Mean held-out bits/node over a fixed batch list (running BatchNorm)."""
+        was = self.model.training
+        self.model.eval()
+        total = 0.0
+        try:
+            for batch in val_batches:
+                data, pos, label = self._batch(batch)
+                total += float(cross_entropy_bits(self.model(data, pos), label))
+        finally:
+            self.model.train(was)
+        return total / max(len(val_batches), 1)
+
+    # -- loop -------------------------------------------------------------
+
+    def fit(self, dataset, run_dir: str, epochs: int | None = None, resume: bool = False,
+            val_batches=None):
+        from scp_tpu_torch.train import checkpoints as ckpt
+        from scp_tpu_torch.train.data import prefetch
+
+        cfg = self.cfg
+        epochs = epochs or int(cfg.train.epoch)
+        os.makedirs(run_dir, exist_ok=True)
+        save_config(cfg, run_dir)
+        metrics_path = os.path.join(run_dir, "metrics.jsonl")
+
+        self.init_state()
+        start_epoch = 0
+        resume_from = cfg.train.get("load_ckpt") or (
+            ckpt.latest_checkpoint(run_dir) if resume else None)
+        if resume_from:
+            meta = ckpt.restore(resume_from, self)
+            start_epoch = int(meta.get("epoch", -1)) + 1
+            print(f"resumed from {resume_from} at epoch {start_epoch}")
+
+        log_every = int(cfg.train.get("log_every", 50))
+        val_every = int(cfg.train.get("val_every", 500))
+        step = self.step
+        # opened after the resume step is known, so no batch is drawn off-schedule
+        gen = prefetch(dataset.batches(start_step=step), depth=2)
+        t0 = time.time()
+        with open(metrics_path, "a") as mf:
+            for epoch in range(start_epoch, epochs):
+                for _ in range(self.steps_per_epoch):
+                    loss = self.train_step(next(gen))
+                    step += 1
+                    if step % log_every == 0 or step == 1:
+                        loss = float(loss)
+                        rec = {"step": step, "epoch": epoch, "train_loss": loss,
+                               "lr": float(self.schedule(step)), "wall": time.time() - t0}
+                        mf.write(json.dumps(rec) + "\n")
+                        mf.flush()
+                        print(f"epoch {epoch} step {step} loss {loss:.4f} bits/node", flush=True)
+                    if val_batches and val_every and step % val_every == 0:
+                        val = self.evaluate(val_batches)
+                        rec = {"step": step, "epoch": epoch, "val_bits_per_node": val,
+                               "wall": time.time() - t0}
+                        mf.write(json.dumps(rec) + "\n")
+                        mf.flush()
+                        print(f"epoch {epoch} step {step} VAL {val:.4f} bits/node", flush=True)
+                if cfg.train.get("ckpt_every_epoch", True):
+                    ckpt.save(run_dir, self, epoch=epoch, step=step)
+        ckpt.save(run_dir, self, epoch=epochs - 1, step=step, final=True)
+        return self

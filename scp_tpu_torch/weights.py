@@ -14,6 +14,11 @@ Leaf names map onto the port's state_dict:
   bias, rel_pos_bias   -> same name
   batch_stats mean/var -> running_mean / running_var
 Nothing is written to disk.
+
+`to_variables(model)` is the other direction: the port's parameters and
+statistics as the JAX package's nested variables (kernels transposed back
+to (in, out), leaves named by their flax scope), what
+scp_tpu_torch.train.checkpoints.save_params_npz writes.
 """
 
 from __future__ import annotations
@@ -91,6 +96,38 @@ def to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
             raise KeyError(f"two leaves map onto {key}")
         sd[key] = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
     return sd
+
+
+def to_variables(model: torch.nn.Module) -> dict:
+    """The port's state_dict -> flax variables {"params": ..., "batch_stats":
+    ...}, nested numpy f32 dicts (inverse of to_state_dict)."""
+    from torch import nn
+
+    leaf_of = {}  # module path -> {param name: flax leaf}
+    for path, mod in model.named_modules():
+        if isinstance(mod, nn.Embedding):
+            leaf_of[path] = {"weight": "embedding"}
+        elif hasattr(mod, "kernel") and callable(mod.kernel):  # layers.Dense
+            leaf_of[path] = {"weight": "kernel"}
+        elif "weight" in dict(mod.named_parameters(recurse=False)):  # LayerNorm, BatchNorm
+            leaf_of[path] = {"weight": "scale"}
+    stats = {v: k for k, v in _STATS.items()}
+    out: dict = {}
+    for key, t in model.state_dict().items():
+        *scope, name = key.split(".")
+        v = t.detach().float().cpu().numpy()
+        if name in stats:
+            collection, leaf = "batch_stats", stats[name]
+        else:
+            collection = "params"
+            leaf = leaf_of.get(".".join(scope), {}).get(name, name)
+            if leaf == "kernel":
+                v = v.T
+        node = out.setdefault(collection, {})
+        for p in scope:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(v)
+    return out
 
 
 def load_into(model: torch.nn.Module, source) -> torch.nn.Module:

@@ -23,6 +23,18 @@ from scp_tpu_torch.codec.slices import split_levels as tsplit
 from scp_tpu_torch.core.preprocess import preprocess_points as tpreprocess
 from scp_tpu_torch.models.ehem import EHEM as TEHEM
 
+
+@pytest.fixture(scope="module", autouse=True)
+def numpy_octree():
+    """scp_tpu's octree builder takes its native library above 2048 keys,
+    built at first use through one <so>.tmp that test workers share (a
+    race that can fail tests/test_ac.py; ROADMAP, traps).  Its numpy path
+    is the native builder's reference, so the octrees are the same."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SCP_TPU_NO_NATIVE", "1")
+        yield
+
+
 # ---- call plan and expansion (integer steps: bit-exact) ---------------------
 
 

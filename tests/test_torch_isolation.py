@@ -1,6 +1,7 @@
-"""The port stands alone: with JAX, flax, optax, orbax and scp_tpu shut
-out of the import system, every module of scp_tpu_torch and chip_smoke
-imports and a small CPU encode/decode runs; chip_smoke.py refuses to
+"""The port stands alone: with JAX, flax, optax, orbax, PyYAML and scp_tpu
+shut out of the import system, every module of scp_tpu_torch (the config
+reader, the trainer, its CLI and tools among them) and chip_smoke imports,
+a small CPU encode/decode runs and a tiny EHEM takes a training step; chip_smoke.py refuses to
 report success without a card; no source builds through
 torch.utils.cpp_extension (which needs ninja and PyTorch's headers)."""
 
@@ -17,7 +18,7 @@ PORT = os.path.join(ROOT, "scp_tpu_torch")
 _BLOCKED_RUN = r'''
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "scp_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "scp_tpu")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -38,6 +39,10 @@ mods = [m.name for m in pkgutil.walk_packages(scp_tpu_torch.__path__, "scp_tpu_t
 for m in mods:
     importlib.import_module(m)
 importlib.import_module("chip_smoke")
+for m in ("scp_tpu_torch.config", "scp_tpu_torch.train.data", "scp_tpu_torch.train.trainer",
+          "scp_tpu_torch.train.checkpoints", "scp_tpu_torch.cli.train",
+          "scp_tpu_torch.tools.train_bench_ckpt", "scp_tpu_torch.ops.edgeconv_fused"):
+    assert m in mods, m
 
 from scp_tpu_torch.codec.ehem_codec import EHEMCodec
 from scp_tpu_torch.codec.slices import split_levels
@@ -60,6 +65,18 @@ stream, bits, _ = codec.encode_to_stream(sl)
 codes = codec.decode(codec.new_stream_decoder(stream), sl.max_level, np.array(sl.pos_mm),
                      angular=True, ground_truth=sl.occ_stream, level_sizes=sl.level_sizes)
 assert (codes == sl.occ_stream).all()
+
+from scp_tpu_torch.config import load_config
+from scp_tpu_torch.train.trainer import cross_entropy_bits
+
+cfg = load_config("smoke.yaml", "configs")
+assert cfg.model.swin.self_depths == [2, 2] and cfg.data.context_size == 64
+model.train()
+label = torch.from_numpy(rng.integers(0, 255, (1, 128)))
+data = torch.from_numpy(rng.integers(1, 9, (1, 128, 4, 3)))
+loss = cross_entropy_bits(model(data, torch.rand(1, 128, 3)), label)
+loss.backward()
+assert all(p.grad is not None for p in model.parameters())
 assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 print("ISOLATED_OK", len(mods), bits)
 '''
@@ -82,7 +99,7 @@ def test_port_imports_and_codes_with_jax_shut_out():
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|scp_tpu)\b(?!_torch)",
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|yaml|scp_tpu)\b(?!_torch)",
                      re.M)
     hits = [p for p in _port_sources() if p.endswith(".py") and pat.search(open(p).read())]
     assert hits == []

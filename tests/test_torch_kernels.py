@@ -555,3 +555,117 @@ def test_kernels_b_c_repeat_bitwise_on_either_gemm_arm_on_card(cuda_device, c, h
                       bp, heads, 1e-5), {})
     assert tswin.attn_sublayer_self.arms[arm] == n_self + 2
     assert tswin.attn_sublayer_cross.arms[arm] == n_cross + 2
+
+
+# ---- the autograd Functions of the training path ---------------------------
+
+
+def _function_grads(fn, args, diff, launcher):
+    """Output and gradients of fn.apply(*args, plain) through the kernel
+    and through the plain version, under a loss whose upstream gradient
+    depends on the output (so the two backwards see different cotangents).
+    The kernel pass must launch exactly once."""
+    got = []
+    for plain in (False, True):
+        leaves = [a.detach().clone().requires_grad_(True) if i in diff else a
+                  for i, a in enumerate(args)]
+        n0 = launcher.launches
+        out = fn.apply(*leaves, plain)
+        assert launcher.launches == n0 + (0 if plain else 1)
+        w = torch.linspace(-1, 1, out.numel(), device=out.device).reshape(out.shape)
+        (out.float().square() * w).sum().backward()
+        got.append((out.detach(), [leaves[i].grad for i in diff]))
+    return got
+
+
+def _assert_function_grads(got, dtype):
+    (out_k, g_k), (out_p, g_p) = got
+    tol = _tol(dtype)
+    torch.testing.assert_close(out_k.float(), out_p.float(), atol=tol, rtol=tol)
+    for a, b in zip(g_k, g_p):
+        assert a is not None and a.dtype == b.dtype and bool(a.any())
+        scale = max(1.0, float(b.float().abs().max()))
+        torch.testing.assert_close(a.float(), b.float(), atol=tol * scale, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_function_a_gradients_kernel_vs_plain_on_card(cuda_device, dtype):
+    r = _r(torch.Generator(device=cuda_device).manual_seed(11), cuda_device)
+    m, c, f = 1000, 256, 1024
+    args = (r(m, c).to(dtype), 1 + r(c, scale=0.1), r(c, scale=0.1),
+            r(f, c, scale=0.05).to(dtype), r(f, scale=0.05), r(c, f, scale=0.05).to(dtype),
+            r(c, scale=0.05), 1e-5, "gelu")
+    got = _function_grads(tmlp.LnMlpResidual, args, range(7), tmlp.ln_mlp_residual)
+    _assert_function_grads(got, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_masks", [0, 2])
+def test_functions_b_c_gradients_kernel_vs_plain_on_card(cuda_device, dtype, n_masks):
+    r = _r(torch.Generator(device=cuda_device).manual_seed(12), cuda_device)
+    bn, w, c, heads = 4, 512, 256, 4
+    rel = r(heads, w, w, scale=0.5)
+    mask = (None if not n_masks else
+            torch.where(r(n_masks, w, w) > 1.0, -100.0, 0.0).to(cuda_device))
+    x, qs = r(bn, w, c).to(dtype), r(bn, w, c).to(dtype)
+    ln = (1 + r(c, scale=0.1), r(c, scale=0.1))
+    wp, bp = r(c, c, scale=0.05).to(dtype), r(c, scale=0.05)
+    self_args = (x, *ln, r(3 * c, c, scale=0.05).to(dtype), r(3 * c, scale=0.05), rel, mask,
+                 wp, bp, heads, 1e-5)
+    got = _function_grads(tswin.AttnSublayerSelf, self_args, [0, 1, 2, 3, 4, 5, 7, 8],
+                          tswin.attn_sublayer_self)
+    _assert_function_grads(got, dtype)
+    cross_args = (x, qs, *ln, r(c, c, scale=0.05).to(dtype), r(c, scale=0.05),
+                  r(2 * c, c, scale=0.05).to(dtype), r(2 * c, scale=0.05), rel, mask, wp, bp,
+                  heads, 1e-5)
+    got = _function_grads(tswin.AttnSublayerCross, cross_args,
+                          [0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11], tswin.attn_sublayer_cross)
+    _assert_function_grads(got, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_function_e_gradients_kernel_vs_plain_on_card(cuda_device, dtype):
+    q, k, v, bias, mask = _core_inputs(cuda_device, 13, 6, 4, 512, 64, 2, dtype, "heads")
+    got = _function_grads(twattn.WindowAttention, (q, k, v, bias, mask, 0.125), [0, 1, 2, 3],
+                          twattn.window_attention)
+    _assert_function_grads(got, dtype)
+
+
+@pytest.mark.cuda
+def test_ehem_training_step_through_the_kernels_matches_plain_on_card(cuda_device):
+    """One f32 training forward + backward of a small EHEM with both
+    switches on (A, B, C, D, E in the forward), against the same model
+    with its seams on their plain versions: loss and every gradient."""
+    from scp_tpu_torch.models.ehem import EHEM
+    from scp_tpu_torch.models.layers import flax_init_
+    from scp_tpu_torch.train.trainer import cross_entropy_bits
+
+    kw = dict(self_depths=(2, 2), cross_depths=(2, 1), embed_dim=128, num_heads=4,
+              window_size=128, mlp_ratio=2.0, knn_k=4, static_knn=True, pallas_knn=True,
+              pallas_attn=True, device="cuda")
+    mk = flax_init_(EHEM(**kw), torch.Generator().manual_seed(0)).train()
+    mp = EHEM(**kw, plain_seams=True).train()
+    mp.load_state_dict(mk.state_dict())
+    rng = np.random.default_rng(6)
+    data, pos = (torch.from_numpy(a).to(cuda_device) for a in _context(rng, 2304))
+    label = torch.from_numpy(rng.integers(0, 256, (1, 2304))).to(cuda_device)
+    ops = (tmlp.ln_mlp_residual, tswin.attn_sublayer_self, tswin.attn_sublayer_cross,
+           tknn.knn_topk, twattn.window_attention)
+    n0 = [op.launches for op in ops]
+    losses = []
+    for m in (mk, mp):
+        loss = cross_entropy_bits(m(data, pos), label)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        if m is mk:
+            assert all(op.launches > n for op, n in zip(ops, n0)), [op.launches for op in ops]
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    gp = dict(mp.named_parameters())
+    for name, p in mk.named_parameters():
+        assert p.grad is not None, name
+        scale = max(1.0, float(gp[name].grad.abs().max()))
+        torch.testing.assert_close(p.grad, gp[name].grad, atol=1e-3 * scale, rtol=1e-3,
+                                   msg=name)

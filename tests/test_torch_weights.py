@@ -36,8 +36,8 @@ def test_layouts_are_transposed_flax_kernels(loaded):
         emb = z["params/geo/occ_enc/embedding"].astype(np.float32)
         var = z["batch_stats/geo/conv2/bn/var"].astype(np.float32)
     blk = loaded.swin_self.stage_0.block_0
-    np.testing.assert_array_equal(blk.attn.qkv.weight.numpy(), k.T)
-    np.testing.assert_array_equal(loaded.geo.occ_enc.weight.numpy(), emb)
+    np.testing.assert_array_equal(blk.attn.qkv.weight.detach().numpy(), k.T)
+    np.testing.assert_array_equal(loaded.geo.occ_enc.weight.detach().numpy(), emb)
     np.testing.assert_array_equal(loaded.geo.conv2.bn.running_var.numpy(), var)
 
 
@@ -69,10 +69,17 @@ def test_fuse_qkv_matches_jax_migration(rng):
 
 
 def test_bf16_model_rounds_weights_and_keeps_f32_norms():
+    """A bf16 model keeps f32 masters (as flax does; an Adam step must be
+    able to move them) and rounds each Dense weight to bf16 at use: the
+    same bf16 values the codec computed with when it stored them rounded."""
     model = EHEM(static_knn=True, dtype=torch.bfloat16, device="cpu")
     weights.load_into(model, CKPT)
     blk = model.swin_self.stage_0.block_0
-    assert blk.mlp1.weight.dtype == torch.bfloat16
+    assert blk.mlp1.weight.dtype == torch.float32 and blk.mlp1.kernel().dtype == torch.bfloat16
+    with np.load(CKPT) as z:
+        k = z["params/swin_self/stage_0/block_0/mlp1/kernel"].astype(np.float32)
+    want = torch.from_numpy(np.ascontiguousarray(k.T)).to(torch.bfloat16)
+    assert torch.equal(blk.mlp1.kernel(), want)
     assert blk.mlp1.bias.dtype == torch.float32 and blk.norm1.weight.dtype == torch.float32
 
 
