@@ -53,6 +53,18 @@ Phases, each printed as it ends (any failure exits non-zero):
      7d. 10 steps on one repeated batch: the last loss below the first;
      7e. the trained parameters through save_params_npz and the codec's
          loader, then the L16 roundtrip: lossless (bpp printed, not gated).
+  8. the codec CLI on the card: the bench sweep written as a KITTI .bin in
+     a temp dir, a port run dir (configs/train_kitti_ehem.yaml through
+     save_config, the sknn npz under <run>/ckpt/), then
+     scp_tpu_torch.cli.encode.main (--type kitti --lidar_level 16 --spher
+     --static-knn) and cli.decode.main with its ground-truth check, in this
+     process.  Gates: the decoded points equal the encoder's quantized
+     reconstruction (sorted, atol 1e-4); the .bin's payload equals, byte
+     for byte, EHEMCodec.encode_to_stream of the same file's slices; its
+     bpp is within 0.1% of phase 4's; A, B and C launch; the native octree
+     builder built and ran, and its OctreeArrays on the cloud equal the
+     numpy builder's.  Prints both preprocess times and the CLI's encode
+     and decode walls by stage.
 
 Phase 2 also holds A, B, C and E in f32 against their plain versions
 (atol = rtol = 1e-4), and times the attention core that B, C and E share
@@ -555,7 +567,8 @@ def roundtrip(codec, slices, counted):
     torch.cuda.synchronize()
     t_enc = time.time() - t0
     t0 = time.time()
-    dec = codec.new_stream_decoder(stream, codec.coding_params())
+    dec = codec.new_stream_decoder(stream, codec.ac_symbols_per_node * len(slices.occ_stream),
+                                   coding_params=codec.coding_params())
     codes = codec.decode(dec, slices.max_level, np.array(slices.pos_mm, np.int64),
                          angular=True, ground_truth=slices.occ_stream,
                          level_sizes=slices.level_sizes)
@@ -764,6 +777,130 @@ def training_phase(counted, slices):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- phase 8: the codec CLI ----------------------------------------------------
+
+
+def _octrees_equal(a, b) -> bool:
+    import dataclasses
+
+    return all(np.array_equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+def cli_phase(model, counted, p4):
+    """Phase 8 (see the module docstring); returns its numbers.  `model` is
+    phase 4's, for the in-process stream the CLI's payload must equal."""
+    import shutil
+    import tempfile
+
+    from scp_tpu_torch.cli import decode as decode_cli
+    from scp_tpu_torch.cli import encode as encode_cli
+    from scp_tpu_torch.cli.codec_common import shard_name
+    from scp_tpu_torch.codec.bitstream import unpack_stream
+    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+    from scp_tpu_torch.codec.slices import split_levels
+    from scp_tpu_torch.config import load_config, save_config
+    from scp_tpu_torch.core.pointcloud import read_points
+    from scp_tpu_torch.core.preprocess import kitti_qs, preprocess_points
+    from scp_tpu_torch.native import octree_native
+    from scp_tpu_torch.tools.profile_train import reset_counts
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        # input: the bench sweep as a KITTI .bin (x, y, z, intensity f32)
+        seq = os.path.join(work, "sequences", "00")
+        os.makedirs(seq)
+        cloud = os.path.join(seq, "000000.bin")
+        pts = synth_kitti(np.random.default_rng(0), N_POINTS).astype(np.float32)
+        np.hstack([pts, np.zeros((N_POINTS, 1), np.float32)]).tofile(cloud)
+        run = os.path.join(work, "run")
+        save_config(load_config("train_kitti_ehem.yaml", os.path.join(HERE, "configs")), run)
+        ckpt = os.path.join(run, "ckpt", os.path.basename(CKPT))
+        os.makedirs(os.path.dirname(ckpt))
+        shutil.copyfile(CKPT, ckpt)
+
+        # the native octree builder: built, and equal to the numpy builder
+        t0 = time.time()
+        if not octree_native.available():
+            raise AssertionError("the native octree builder did not build")
+        t_build = time.time() - t0
+        read = read_points(cloud)
+        pre = {}
+        for tag, native in (("native", True), ("numpy", False)):
+            t0 = time.perf_counter()
+            res = preprocess_points(read, system="spher", qs=kitti_qs(LIDAR_LEVEL), native=native)
+            pre[tag] = (res, time.perf_counter() - t0)
+        (res, t_native), (res_np, t_numpy) = pre["native"], pre["numpy"]
+        if not _octrees_equal(res.tree, res_np.tree):
+            raise AssertionError("native OctreeArrays differ from the numpy builder's")
+        say(f"  native octree: build + load {t_build:.2f} s; preprocess native "
+            f"{t_native:.3f} s (octree {res.octree_s:.3f} s), numpy {t_numpy:.3f} s (octree "
+            f"{res_np.octree_s:.3f} s); OctreeArrays equal ({res.tree.num_nodes} nodes)")
+
+        # encode through the CLI
+        out_dir = os.path.join(work, "bins")
+        flags = ["--ckpt_path", ckpt, "--type", "kitti", "--static-knn", "--test_files", cloud]
+        reset_counts(counted.values())
+        octree_native.build_from_keys.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (enc,) = encode_cli.main([*flags, "--lidar_level", str(LIDAR_LEVEL), "--spher",
+                                  "--out_dir", out_dir])
+        enc_wall = time.perf_counter() - t0
+        native_calls = octree_native.build_from_keys.calls
+        if not native_calls:
+            raise AssertionError("the CLI's preprocessing did not take the native builder")
+
+        # decode through the CLI, codes checked against the shard
+        shards = os.path.join(work, "shards")
+        os.makedirs(shards)
+        np.save(os.path.join(shards, shard_name(cloud, "kitti")), res.context)
+        t0 = time.perf_counter()
+        (dec,) = decode_cli.main([*flags, "--preproc_path", shards, "--bin_dir", out_dir])
+        dec_wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counted.items()}
+        for k in "ABC":
+            if not launches[k]:
+                raise AssertionError(f"phase 8: kernel {k} never launched: {launches}")
+        got = np.sort(dec["points"].astype(np.float64), axis=0)
+        want = np.sort(res.recon_points.astype(np.float64), axis=0)
+        if got.shape != want.shape or not np.allclose(got, want, rtol=0, atol=1e-4):
+            raise AssertionError("phase 8: decoded points differ from the quantized cloud")
+
+        # the CLI's payload is the codec's in-process stream of the file
+        with open(enc["outputfile"], "rb") as fh:
+            blob = fh.read()
+        header, payload = unpack_stream(blob)
+        codec = EHEMCodec(model, context_size=8192)
+        if header.coding_params != codec.coding_params():
+            raise AssertionError(f"phase 8: stamp {header.coding_params} != {codec.coding_params()}")
+        slices = split_levels(res.context, angular=True, lidar_level_clip=LIDAR_LEVEL)
+        stream, _, _ = codec.encode_to_stream(slices, lidar_clip=LIDAR_LEVEL)
+        if stream != payload:
+            raise AssertionError("phase 8: the CLI's payload differs from the in-process stream")
+        if abs(enc["bpp"] - p4["bpp"]) > BPP_RTOL * p4["bpp"]:
+            raise AssertionError(f"phase 8 bpp {enc['bpp']} is not within {BPP_RTOL} of "
+                                 f"phase 4's {p4['bpp']}")
+        et, dt = enc["timings"], dec["timings"]
+        say(f"  encode CLI: wall {enc_wall:.3f} s; preprocess {et['preprocess']:.3f}, octree "
+            f"{et['octree']:.3f}, model + coder {et['model_coder']:.3f}, metrics (PSNR D1, "
+            f"chamfer) {et['metrics']:.3f}, file I/O {et['file_io']:.3f} s; bpp "
+            f"{enc['bpp']:.4f}, {len(payload)} payload bytes, header {len(blob) - len(payload)} "
+            f"bytes, PSNR D1 {enc['psnr_d1']:.4f} dB, chamfer {enc['chamfer']:.6f}")
+        say(f"  decode CLI: wall {dec_wall:.3f} s; model + coder {dt['model_coder']:.3f}, "
+            f"deoctree {dt['deoctree']:.3f}, file I/O {dt['file_io']:.3f} s; lossless against "
+            f"the shard; launches A/B/C/D/E {[launches[k] for k in 'ABCDE']} (encode + decode)")
+        return dict(bpp=enc["bpp"], payload_bytes=len(payload),
+                    header_bytes=len(blob) - len(payload), psnr_d1=enc["psnr_d1"],
+                    chamfer=enc["chamfer"], encode_wall_s=enc_wall, decode_wall_s=dec_wall,
+                    encode_timings=et, decode_timings=dt, launches=launches,
+                    native_octree_calls=native_calls, native_build_s=t_build,
+                    preprocess_native_s=t_native, preprocess_numpy_s=t_numpy,
+                    octree_native_s=res.octree_s, octree_numpy_s=res_np.octree_s)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -907,6 +1044,14 @@ def main() -> int:
                        train_forward_ms=prof.get("forward_ms"),
                        train_backward_ms=prof.get("backward_ms"))
     say(json.dumps({"training": {k: v for k, v in p7.items() if not k.startswith("profile")}}))
+
+    # ---- 8. the codec CLI on the card
+    t0 = time.time()
+    p8 = cli_phase(model, counted, p4)
+    say(f"phase 8 codec CLI: {time.time() - t0:.2f} s")
+    for k in "ABC":
+        rows[k]["cli_launches"] = p8["launches"][k]
+    say(json.dumps({"cli": p8}))
     say(f"total wall {time.time() - t_start:.1f} s")
 
     for k, prefixes in (("A", ("mlp_sm90<",)), ("B", ("gemm_sm90<",)), ("C", ("gemm_sm90<",)),

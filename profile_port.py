@@ -48,7 +48,8 @@ def roundtrip(codec, slices):
     torch.cuda.synchronize()
     t_enc = time.time() - t0
     t0 = time.time()
-    codes = codec.decode(codec.new_stream_decoder(stream, codec.coding_params()),
+    codes = codec.decode(codec.new_stream_decoder(stream, len(slices.occ_stream),
+                                                 coding_params=codec.coding_params()),
                          slices.max_level,
                          np.array(slices.pos_mm, np.int64), angular=True,
                          ground_truth=slices.occ_stream, level_sizes=slices.level_sizes)

@@ -15,7 +15,13 @@ subpackages mirror scp_tpu's:
   train   — the single-device EHEM trainer: data pipeline, loss, Adam +
             StepLR, checkpoints (and scp_tpu's npz format).
   config  — the YAML config system, read without PyYAML.
-  cli, tools — the training CLI, the bench-checkpoint recipe, probes.
+  metrics — D1/D2 PSNR and Chamfer (scipy's KD-tree).
+  native  — the C++ octree builder, built with g++ at first use and
+            loaded with ctypes.
+  cli     — the codec CLIs (encode, decode, selftest; EHEM in rans mode)
+            and the training CLI.
+  tools   — the port bench (single-scan throughput on the card), the
+            bench-checkpoint recipe, the normals ply, probes.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with
 no card and no such argument they raise instead of falling back.

@@ -1,0 +1,434 @@
+"""Shared encode/decode session logic of the port's codec CLIs (the twin of
+scp_tpu/cli/codec_common.py, EHEM in rans mode).
+
+Handles: the run config, the weights, the preprocessing cache (`_meta.npy`
+compatible with the reference's, encode_dataset_ehem.py:132, and the
+`_manifest.npz` grids), single- and multi-level (3-subtree) encoding,
+bitstream + sidecar output, and full decode back to a Cartesian .ply.
+
+A run dir is the port's: `config.yaml` and a checkpoint under `ckpt/`,
+either the trainer's `torch.save` file (train/checkpoints.py::save) or a
+bench `.npz` (the JAX package's format).  scp_tpu's orbax checkpoint
+directories are refused: the card's machine has no orbax.
+
+What scp_tpu reads from the environment are constructor arguments here:
+`dtype` (SCP_CODEC_DTYPE, bf16 by default), `static_knn`, `pallas_knn`,
+`pallas_attn`; and `device` (cuda unless told otherwise).  OctAttention
+runs and the staged / full coding modes are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from scp_tpu_torch import resolve_device
+from scp_tpu_torch.codec.bitstream import (
+    StreamHeader,
+    pack_stream,
+    reference_style_name,
+    unpack_stream,
+)
+from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+from scp_tpu_torch.codec.slices import split_levels
+from scp_tpu_torch.config import load_run_config
+from scp_tpu_torch.core.octree import deoctree
+from scp_tpu_torch.core.pointcloud import read_points, write_ply
+from scp_tpu_torch.core.preprocess import ford_qs, kitti_qs, preprocess_points
+from scp_tpu_torch.core.quantize import QuantGrid
+from scp_tpu_torch.metrics import PEAKS, chamfer, d1_d2_psnr
+from scp_tpu_torch.models.ehem import EHEM
+from scp_tpu_torch.train import checkpoints
+from scp_tpu_torch.weights import load_into
+
+MULLEVEL_PATHS = ([0, 0], [0, 1], [1])  # near/mid/far (reference test_gene.py:24-65)
+
+# MVUB upper-body sequences need the axis rotation (reference
+# data_preprocess.py:242-243)
+MVUB_NAMES = (
+    "andrew10", "david10", "phil10", "phil9", "ricardo10", "ricardo9", "sarah10",
+)
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def shard_name(ori_file: str, data_type: str) -> str:
+    p = Path(ori_file)
+    if data_type == "kitti":
+        return p.parent.name + p.stem
+    return p.stem
+
+
+def level_qs(data_type: str, lidar_level: int) -> float:
+    return kitti_qs(lidar_level) if data_type != "ford" else ford_qs(lidar_level)
+
+
+def load_weights(model: EHEM, ckpt_path: str) -> EHEM:
+    """Fill `model` from a port checkpoint: the trainer's `torch.save`
+    file or a bench `.npz`."""
+    if os.path.isdir(ckpt_path):
+        raise ValueError(
+            f"{ckpt_path} is a directory (an orbax checkpoint of scp_tpu?): the port "
+            "reads a torch.save file of its trainer or a bench .npz; orbax is not "
+            "available where the port runs")
+    if ckpt_path.endswith(".npz"):
+        return load_into(model, checkpoints.load_params_npz(ckpt_path))
+    payload = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    model.load_state_dict(payload["model"], strict=True)
+    return model
+
+
+class CodecSession:
+    """One model + codec serving encode_file / decode_file calls.
+    `timings` holds the seconds of the last call, by stage."""
+
+    def __init__(self, ckpt_path: str, run_dir: str, *, dtype: str = "bf16",
+                 static_knn: bool = False, pallas_knn: bool = False,
+                 pallas_attn: bool = False, device=None):
+        self.cfg = load_run_config(run_dir)
+        if not self.cfg.model.class_name.upper().startswith("EHEM"):
+            raise NotImplementedError(
+                f"model {self.cfg.model.class_name!r}: the port's codec CLI codes EHEM "
+                "runs only; OctAttention is still to port (ROADMAP.md, queue 1)")
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
+        self.is_ehem = True
+        self.device = resolve_device(device)
+        # parameters stay f32; dtype sets the compute dtype, and is stamped
+        # in coding_params so an encode/decode mismatch is refused
+        self.model = EHEM.from_config(
+            self.cfg, DTYPES[dtype], static_knn=static_knn, pallas_knn=pallas_knn,
+            pallas_attn=pallas_attn, device=self.device)
+        load_weights(self.model, ckpt_path)
+        self.codec = EHEMCodec(self.model, self.cfg.model.context_size)
+        self.timings: dict[str, float] = {}
+
+    def _tick(self, stage: str, t0: float) -> float:
+        now = time.perf_counter()
+        self.timings[stage] = self.timings.get(stage, 0.0) + now - t0
+        return now
+
+    # -- preprocessing -----------------------------------------------------
+
+    @staticmethod
+    def _derive_grid(ref_pts, ori_file, data_type, lidar_level, system):
+        """Reconstruct the QuantGrid a preprocessing run would have used
+        (grid parameters depend only on the points, system and step size —
+        not on the octree)."""
+        from scp_tpu_torch.core.preprocess import rotate_axes
+        from scp_tpu_torch.core.quantize import make_grid
+
+        if data_type == "obj":
+            p = ref_pts
+            if any(n in ori_file for n in MVUB_NAMES):
+                p = rotate_axes(p)
+            return make_grid(p, system="cart", qs=1.0, offset="min")
+        qs = level_qs(data_type, lidar_level)
+        return make_grid(
+            ref_pts,
+            system=system,
+            qs=qs,
+            offset=(-200 if data_type == "kitti" else -(2**17))
+            if system == "cart"
+            else 0,
+        )
+
+    @staticmethod
+    def _preproc_one(pts, ori_file, data_type, lidar_level, system, morton_path=None):
+        if data_type == "obj":
+            # dense object clouds (MPEG/MVUB): unit grid, min offset, MVUB
+            # sequences rotated to a common orientation (reference
+            # encode_dataset.py:69-77, data_preprocess.py:37-39)
+            rotate = any(n in ori_file for n in MVUB_NAMES)
+            return preprocess_points(pts, system="cart", qs=1.0, offset="min",
+                                     rotation=rotate)
+        qs = level_qs(data_type, lidar_level)
+        return preprocess_points(
+            pts,
+            system=system,
+            qs=qs,
+            offset=(-200 if data_type == "kitti" else -(2**17))
+            if system == "cart"
+            else 0,
+            morton_path=morton_path,
+        )
+
+    @staticmethod
+    def _load_normals(ori_file, data_type, normals_dir):
+        """Original-cloud normals for D2 PSNR (reference pt.py:68-79 feeds
+        pc_error a normals ply via -n).  Looked up by stem in normals_dir
+        (the layout of scp_tpu's tools/gene_normals.py)."""
+        if not normals_dir:
+            return None
+        from scp_tpu_torch.tools.gene_normals import read_normals_ply
+
+        for cand in (Path(ori_file).stem, shard_name(ori_file, data_type)):
+            p = os.path.join(normals_dir, cand + ".ply")
+            if os.path.exists(p):
+                _, normals = read_normals_ply(p)
+                return normals
+        raise FileNotFoundError(
+            f"no normals ply for {ori_file!r} under {normals_dir!r}"
+        )
+
+    def preproc(
+        self, ori_file, data_type, lidar_level, system, preproc_path="",
+        mullevel=False, normals_dir="",
+    ):
+        """Returns (results list, metrics dict). Uses cached shards when a
+        preproc_path is supplied (reference encode_dataset_ehem.py:126-135).
+        """
+        t = time.perf_counter()
+        name = shard_name(ori_file, data_type)
+        if preproc_path:
+            base = os.path.join(preproc_path, name)
+            suffixes = ["_0_0", "_0_1", "_1"] if mullevel else [""]
+            ctxs = [np.load(base + s + ".npy") for s in suffixes]
+            meta = np.load(base + "_meta.npy")
+            ref_pts = read_points(ori_file)
+            if os.path.exists(base + "_manifest.npz"):
+                manifest = np.load(base + "_manifest.npz", allow_pickle=True)
+                grids = [
+                    QuantGrid(
+                        system=str(manifest["system"]),
+                        qs=manifest["qs"][i],
+                        offset=manifest["offset"][i],
+                        bin_num=int(manifest["bin_num"][i]),
+                    )
+                    for i in range(len(ctxs))
+                ]
+                z_offset = float(meta[2]) if len(meta) > 2 else 0.0
+            else:
+                # Reference-style cache (shards + `_meta.npy` only,
+                # reference encode_dataset_ehem.py:126-135): rebuild the
+                # grids exactly as preprocessing would, from the original
+                # points + (type, level, system) (the reference re-derives
+                # qs/bin_num the same way, encode_dataset_ehem.py:136-171).
+                grids = [
+                    self._derive_grid(
+                        ref_pts, ori_file, data_type,
+                        lidar_level + (j if mullevel else 0), system,
+                    )
+                    for j in range(len(ctxs))
+                ]
+                z_offset = float(grids[0].offset[2])
+            results = list(zip(ctxs, grids))
+            # cached-shard runs never measure PSNR (reference `_meta.npy`
+            # cache stores only [bin_num, chamfer]); mark N/A as NaN so the
+            # results txt can't confuse "not measured" with a measured zero
+            metrics = {
+                "bin_num": int(meta[0]),
+                "chamfer": float(meta[1]),
+                "z_offset": z_offset,
+                "psnr_d1": float("nan"),
+                "psnr_d2": float("nan"),
+                "ref_points": ref_pts,
+            }
+            self._tick("file_io", t)
+            return results, metrics
+
+        ref_pts = read_points(ori_file)
+        t = self._tick("file_io", t)
+        results = []
+        octree_s = 0.0
+        if mullevel:
+            recons = []
+            for j, mp in enumerate(MULLEVEL_PATHS):
+                res = self._preproc_one(
+                    ref_pts, ori_file, data_type, lidar_level + j, system, morton_path=mp
+                )
+                octree_s += res.octree_s
+                results.append((res.context, res.grid))
+                recons.append(res.recon_points)
+                if j == 0:
+                    first = res
+            recon = np.vstack(recons)
+        else:
+            first = self._preproc_one(ref_pts, ori_file, data_type, lidar_level, system)
+            octree_s = first.octree_s
+            results.append((first.context, first.grid))
+            recon = first.recon_points
+        t = self._tick("preprocess", t)
+        self.timings["preprocess"] -= octree_s
+        self.timings["octree"] = self.timings.get("octree", 0.0) + octree_s
+
+        peak = PEAKS.get(data_type, 59.70)
+        normals = self._load_normals(ori_file, data_type, normals_dir)
+        t = self._tick("file_io", t)
+        psnr_d1, psnr_d2 = d1_d2_psnr(ref_pts, recon, peak, normals=normals)
+        metrics = {
+            "bin_num": first.bin_num,
+            "chamfer": chamfer(ref_pts.copy(), recon.copy()),
+            "z_offset": first.z_offset,
+            "psnr_d1": psnr_d1,
+            "psnr_d2": psnr_d2 if normals is not None else float("nan"),
+            "ref_points": ref_pts,
+        }
+        self._tick("metrics", t)
+        return results, metrics
+
+    # -- encode --------------------------------------------------------------
+
+    def encode_file(
+        self,
+        ori_file,
+        out_dir,
+        data_type="kitti",
+        lidar_level=12,
+        system="spher",
+        preproc_path="",
+        mullevel=False,
+        normals_dir="",
+    ) -> dict:
+        self.timings = {}
+        results, metrics = self.preproc(
+            ori_file, data_type, lidar_level, system, preproc_path, mullevel,
+            normals_dir=normals_dir,
+        )
+        angular = system in ("spher", "cylin")
+
+        t = time.perf_counter()
+        enc = self.codec.new_stream_encoder()
+        sub_sizes, mms, max_levels, lvl_sizes = [], [], [], []
+        for ctx, _grid in results:
+            # deepest-level clip applied symmetrically at encode
+            # (split_levels + in-program) and decode (header stamp) —
+            # reference encode_dataset_ehem.py:86 / Embed(19) bound
+            slices = split_levels(ctx, angular=angular, lidar_level_clip=lidar_level)
+            self.codec.encode_into(enc, slices, lidar_clip=lidar_level)
+            mms.append(np.array(slices.pos_mm, np.int64))
+            max_levels.append(slices.max_level)
+            sub_sizes.append(slices.occ_stream.shape[0])
+            lvl_sizes.append(np.asarray(slices.level_sizes, np.int64))
+        payload, bits, n_sym = EHEMCodec.finish_stream(enc)
+        elapsed = time.perf_counter() - t
+        t = self._tick("model_coder", t)
+
+        header = StreamHeader(
+            n_sym=int(n_sym),
+            max_level=int(sum(max_levels)) if mullevel else int(max_levels[0]),
+            system=system,
+            bin_num=int(metrics["bin_num"]),
+            z_offset=float(metrics["z_offset"]),
+            lidar_clip=int(lidar_level),
+            qs_rho=float(level_qs(data_type, lidar_level)),
+            pos_mm=np.concatenate(mms, axis=0) if mms else np.zeros((0, 2), np.int64),
+            subtree_sizes=tuple(sub_sizes),
+            coding_mode=self.codec.mode,
+            backend=self.codec.backend,
+            coding_params=self.codec.coding_params(),
+            subtree_levels=tuple(max_levels),
+            level_sizes=np.concatenate(lvl_sizes),
+            grid_qs=np.stack(
+                [np.broadcast_to(np.asarray(g.qs, np.float64), (3,)) for _, g in results]
+            ),
+            grid_offset=np.stack(
+                [np.broadcast_to(np.asarray(g.offset, np.float64), (3,)) for _, g in results]
+            ),
+            grid_bin_num=np.array([g.bin_num for _, g in results], np.int64),
+        )
+        os.makedirs(out_dir, exist_ok=True)
+        stem = shard_name(ori_file, data_type)
+        binname = reference_style_name(
+            stem, system, header.max_level, header.bin_num, header.z_offset
+        )
+        outputfile = os.path.join(out_dir, binname)
+        with open(outputfile, "wb") as f:
+            f.write(pack_stream(header, payload))
+        # decode manifest sidecar (per-subtree grids + level maxima)
+        np.savez(
+            outputfile + ".manifest.npz",
+            qs=np.stack([g.qs for _, g in results]),
+            offset=np.stack([g.offset for _, g in results]),
+            bin_num=np.array([g.bin_num for _, g in results]),
+            system=system,
+            max_levels=np.array(max_levels),
+        )
+        self._tick("file_io", t)
+
+        pt_num = metrics["ref_points"].shape[0]
+        oct_num = int(sum(sub_sizes))
+        return {
+            "outputfile": outputfile,
+            "seconds": elapsed,  # model + coder wall, payload fetched
+            "pt_num": pt_num,
+            "oct_num": oct_num,
+            "bits": bits,
+            "bit_per_oct": bits / oct_num,
+            "bpp": bits / pt_num,
+            "chamfer": metrics["chamfer"],
+            "psnr_d1": metrics["psnr_d1"],
+            "psnr_d2": metrics.get("psnr_d2", 0.0),
+        }
+
+    # -- decode --------------------------------------------------------------
+
+    def decode_file(self, binfile, out_ply=None, ground_truth: np.ndarray | None = None):
+        """Bitstream -> occupancy codes -> Cartesian points (+ .ply)."""
+        self.timings = {}
+        t = time.perf_counter()
+        with open(binfile, "rb") as f:
+            header, payload = unpack_stream(f.read())
+        t = self._tick("file_io", t)
+        if header.backend and header.backend != self.codec.backend:
+            # encoder and decoder must run the same float math: another
+            # backend's CDF rows differ and the coder would desync
+            raise RuntimeError(
+                f"bitstream was encoded on backend {header.backend!r}; decoding on "
+                f"{self.codec.backend!r} is not supported"
+            )
+        if header.coding_mode != self.codec.mode:
+            raise NotImplementedError(
+                f"bitstream coded in mode {header.coding_mode!r}: the port decodes 'rans' "
+                "streams only; the staged and full modes are still to port (ROADMAP.md)")
+        want_params = self.codec.coding_params()
+        if header.coding_params and header.coding_params != want_params:
+            # same contract as the backend stamp: these settings change the
+            # phase programs' float math -> CDFs -> coder sync
+            raise RuntimeError(
+                f"bitstream coded with {header.coding_params!r} but this session runs "
+                f"{want_params!r}; pass the matching --dtype / --static-knn / "
+                "--pallas-knn / --pallas-attn"
+            )
+        # per-subtree grids, octree depths and per-level node counts all
+        # live in the header: a bare .bin decodes with no sidecar
+        max_levels = header.subtree_levels
+        grids = header.grids()
+        dec = self.codec.new_stream_decoder(payload, header.n_sym)
+
+        start = time.perf_counter()
+        parts = []
+        mm_off = lvl_off = gt_off = 0
+        for i, ml in enumerate(max_levels):
+            ml = int(ml)
+            mm = header.pos_mm[mm_off : mm_off + ml]
+            mm_off += ml
+            sizes_i = header.level_sizes[lvl_off : lvl_off + ml]
+            lvl_off += ml
+            gt = None
+            if ground_truth is not None:
+                gt = ground_truth[gt_off : gt_off + int(header.subtree_sizes[i])]
+            gt_off += int(header.subtree_sizes[i])
+            t = time.perf_counter()
+            codes = self.codec.decode(
+                dec,
+                ml,
+                mm,
+                angular=header.angular,
+                lidar_clip=int(header.lidar_clip),
+                ground_truth=gt,
+                level_sizes=sizes_i,
+            )
+            t = self._tick("model_coder", t)
+            parts.append(grids[i].from_grid(deoctree(codes.astype(np.int64) + 1)))
+            self._tick("deoctree", t)
+        elapsed = time.perf_counter() - start
+        out_points = np.vstack(parts).astype(np.float32)
+        if out_ply:
+            t = time.perf_counter()
+            write_ply(out_ply, out_points)
+            self._tick("file_io", t)
+        return out_points, elapsed

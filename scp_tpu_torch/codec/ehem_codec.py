@@ -14,8 +14,10 @@ the port's float math (its kernels, exact top-k) differs from the TPU's,
 so neither package decodes the other's streams; the two are compared at
 the level of logits, CDF rows, rANS bytes and bpp.
 
-The staged and full stream modes, multi-level (3-subtree) coding and
-multi-device coding are not ported yet (ROADMAP.md).
+Several `encode_into` calls on one encoder write one stream that `decode`
+reads back subtree by subtree (the multi-level CLI path).  The staged and
+full stream modes and multi-device coding are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -215,7 +217,13 @@ class EHEMCodec:
     TINY_UNIFORM_MAX = 512  # levels this small use a fixed uniform prior
     GROUP_SIZE = 16  # full chunks per grouped phase call (scp_tpu's default)
 
-    def __init__(self, model: EHEM, context_size: int = 8192):
+    def __init__(self, model: EHEM, context_size: int = 8192, mode: str = "rans"):
+        if mode != "rans":
+            raise NotImplementedError(
+                f"EHEM coding mode {mode!r}: the port codes in 'rans' mode only; the "
+                "staged and full modes (host arithmetic coder) are still to port "
+                "(ROADMAP.md, queue 1)")
+        self.mode = mode
         self.model = model
         self.device = model.device
         self.context_size = context_size
@@ -292,6 +300,11 @@ class EHEMCodec:
     def backend(self) -> str:
         return BACKEND if self.device.type == "cuda" else "torch-cpu"
 
+    @property
+    def ac_symbols_per_node(self) -> int:
+        """Coder steps per occupancy symbol (one in rans mode)."""
+        return 1
+
     def new_stream_encoder(self):
         return rans.RansEncoder(self.device)
 
@@ -301,10 +314,14 @@ class EHEMCodec:
         payload = enc.finish()
         return payload, len(payload) * 8, enc.n_symbols
 
-    def new_stream_decoder(self, payload: bytes, coding_params: str | None = None):
-        """Decoder over a stream's payload.  `coding_params` is the stamp
-        the stream was written with (its header's); a stream stamped with
-        other settings is refused, since its CDF rows would not match."""
+    def new_stream_decoder(self, payload: bytes, n_sym: int, *,
+                           coding_params: str | None = None):
+        """Decoder over a stream's payload, scp_tpu's `(payload, n_sym)`
+        (the rANS decoder reads its symbol counts from the level sizes, so
+        `n_sym` only sizes the host coder of the modes not ported).
+        `coding_params` is the stamp the stream was written with (its
+        header's); a stream stamped with other settings is refused, since
+        its CDF rows would not match."""
         if coding_params is not None and coding_params != self.coding_params():
             raise ValueError(
                 f"stream coded with {coding_params!r}, but this codec runs "
@@ -362,9 +379,19 @@ class EHEMCodec:
         """Encode a sliced cloud -> (stream_bytes, bit_count, seconds)."""
         t0 = time.time()
         enc = self.new_stream_encoder()
-        self._encode_rans_device(enc, slices, lidar_clip)
+        self.encode_into(enc, slices, lidar_clip)
         stream, bits, _ = self.finish_stream(enc)
         return stream, bits, time.time() - t0
+
+    @torch.no_grad()
+    def encode_into(self, enc, slices: LevelSlices, lidar_clip=None) -> float:
+        """Encode one sliced (sub)tree into an open stream encoder
+        (ehem_codec.py:840); the multi-level driver feeds three subtrees
+        through one stream.  Returns the seconds spent; the bytes
+        materialize in finish_stream."""
+        t0 = time.time()
+        self._encode_rans_device(enc, slices, lidar_clip)
+        return time.time() - t0
 
     def _encode_rans_device(self, enc, slices: LevelSlices, lidar_clip=None):
         """Device wavefront encode (ehem_codec.py:888): the occupancy byte

@@ -1,6 +1,7 @@
 """Vectorized breadth-first octree build / unbuild and K-ancestor contexts.
 
-Copy of scp_tpu/core/octree.py, numpy build path only.
+Copy of scp_tpu/core/octree.py; above NATIVE_MIN_KEYS leaves the build
+takes the port's own C++ builder (scp_tpu_torch/native), as scp_tpu does.
 
 Semantics follow the reference codec's octree serialization
 (the reference codec's `data_preproc/Octree.py`: `GenOctree` :148-181, `DeOctree`
@@ -28,6 +29,8 @@ import numpy as np
 
 from scp_tpu_torch.core.morton import axis_bits, morton_decode, morton_encode
 
+NATIVE_MIN_KEYS = 2048  # the native builder takes clouds of more leaves than this
+
 
 @dataclasses.dataclass
 class OctreeArrays:
@@ -50,11 +53,13 @@ class OctreeArrays:
         return slice(int(self.level_starts[l - 1]), int(self.level_starts[l]))
 
 
-def build_octree(points: np.ndarray, max_level: int | None = None) -> OctreeArrays:
+def build_octree(points: np.ndarray, max_level: int | None = None,
+                 native: bool = True) -> OctreeArrays:
     """Build the BFS octree of unique non-negative integer points.
 
     `max_level` overrides the derived bit depth (reference `GenOctree`'s
     Lmax argument); by default it is the minimal bit count of the data.
+    `native=False` keeps the numpy builder at every size.
     """
     points = np.asarray(points)
     if points.ndim != 2 or points.shape[1] != 3:
@@ -64,12 +69,17 @@ def build_octree(points: np.ndarray, max_level: int | None = None) -> OctreeArra
     bits = axis_bits(points) if max_level is None else int(max_level)
     keys = morton_encode(points, bits)
     keys = np.unique(keys)  # sorted unique leaf keys
-    return _build_from_keys(keys, bits)
+    return _build_from_keys(keys, bits, native)
 
 
-def _build_from_keys(keys: np.ndarray, bits: int) -> OctreeArrays:
-    """Build from sorted unique full-depth Morton keys (numpy path; the
-    JAX package's native C++ octree build is not ported yet)."""
+def _build_from_keys(keys: np.ndarray, bits: int, native: bool = True) -> OctreeArrays:
+    """Build from sorted unique full-depth Morton keys: the native C++
+    builder above NATIVE_MIN_KEYS keys (built at first use; a failed build
+    raises), the numpy one otherwise."""
+    if native and keys.shape[0] > NATIVE_MIN_KEYS:
+        from scp_tpu_torch.native import octree_native
+
+        return octree_native.build_from_keys(keys, bits)
     return _build_from_keys_numpy(keys, bits)
 
 

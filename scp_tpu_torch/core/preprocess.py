@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 
@@ -32,6 +33,7 @@ class PreprocResult:
     recon_points: np.ndarray  # dequantized Cartesian reconstruction
     bin_num: int
     z_offset: float
+    octree_s: float = 0.0  # seconds of the octree build (host wall)
 
 
 def rotate_axes(points: np.ndarray) -> np.ndarray:
@@ -50,7 +52,9 @@ def preprocess_points(
     rotation: bool = False,
     normalize: bool = False,
     morton_path: list[int] | None = None,
+    native: bool = True,
 ) -> PreprocResult:
+    """`native` picks the octree builder (core.octree.build_octree)."""
     p = np.asarray(points, dtype=np.float64)
     if normalize:
         p = p - p.mean(axis=0)
@@ -61,16 +65,18 @@ def preprocess_points(
     grid = make_grid(p, system=system, qs=qs, offset=offset, qlevel=qlevel)
     q = np.unique(grid.to_grid(p), axis=0)
 
+    t0 = time.perf_counter()
     if morton_path is not None:
         # Multi-level split: keep only points whose radial-axis Morton bit
         # prefix matches; the octree keeps the FULL cloud's bit depth so the
         # three subtrees tile one global grid (reference Octree.py:184-221).
         bits = axis_bits(q)
         q_sub = q[morton_prefix_filter(q, morton_path)]
-        tree = build_octree(q_sub, max_level=bits)
+        tree = build_octree(q_sub, max_level=bits, native=native)
         q = q_sub
     else:
-        tree = build_octree(q)
+        tree = build_octree(q, native=native)
+    octree_s = time.perf_counter() - t0
 
     ctx = gen_context(tree, k=4)
     return PreprocResult(
@@ -82,6 +88,7 @@ def preprocess_points(
         recon_points=grid.from_grid(q).astype(np.float32),
         bin_num=grid.bin_num,
         z_offset=float(grid.offset[2]),
+        octree_s=octree_s,
     )
 
 

@@ -261,7 +261,7 @@ def test_codec_roundtrip_lossless_with_jax_bpp(monkeypatch):
     codec = tcodec.EHEMCodec(tm, context_size=256)
     assert "staticknn=1" in codec.coding_params()
     stream, bits, _ = codec.encode_to_stream(sl)
-    codes = codec.decode(codec.new_stream_decoder(stream), sl.max_level,
+    codes = codec.decode(codec.new_stream_decoder(stream, len(sl.occ_stream)), sl.max_level,
                          np.array(sl.pos_mm, np.int64), angular=True,
                          ground_truth=sl.occ_stream, level_sizes=sl.level_sizes)
     np.testing.assert_array_equal(codes, sl.occ_stream)

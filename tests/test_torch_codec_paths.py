@@ -53,7 +53,8 @@ def models():
 def _roundtrip(tm, jm, variables, sl_t, sl_j, angular, clip):
     codec = tcodec.EHEMCodec(tm, context_size=CONTEXT)
     stream, bits, _ = codec.encode_to_stream(sl_t, lidar_clip=clip)
-    codes = codec.decode(codec.new_stream_decoder(stream, codec.coding_params()),
+    codes = codec.decode(codec.new_stream_decoder(stream, len(sl_t.occ_stream),
+                                                 coding_params=codec.coding_params()),
                          sl_t.max_level, np.array(sl_t.pos_mm, np.int64), angular=angular,
                          lidar_clip=clip, ground_truth=sl_t.occ_stream,
                          level_sizes=sl_t.level_sizes)
@@ -119,5 +120,34 @@ def test_stamp_names_the_attention_numerics_and_refuses_older_streams(models):
     for other in bad:
         assert other != stamp
         with pytest.raises(ValueError, match="stream coded with"):
-            codec.new_stream_decoder(b"\0" * 64, other)
-    codec.new_stream_decoder(b"\0" * 64, stamp)
+            codec.new_stream_decoder(b"\0" * 64, 1, coding_params=other)
+    codec.new_stream_decoder(b"\0" * 64, 1, coding_params=stamp)
+
+
+def test_cylindrical_roundtrip_lossless_with_jax_bits(monkeypatch, models):
+    """The cylindrical system (scp_tpu's `--cylin`): angular, so positions
+    normalize by each level's (min, max) of the radial / azimuth / height
+    grid, as in spherical mode."""
+    monkeypatch.setenv("SCP_STATIC_KNN", "1")
+    jm, variables, tm = models
+    rng = np.random.default_rng(8)
+    n = 700
+    r, az, z = rng.uniform(2, 60, n), rng.uniform(0, 2 * np.pi, n), rng.uniform(-3, 1, n)
+    pts = np.stack([r * np.cos(az), r * np.sin(az), z], 1)
+    ctx_t = tpreprocess(pts, system="cylin", qs=60.0 / 255).context
+    ctx_j = jpreprocess(pts, system="cylin", qs=60.0 / 255).context
+    np.testing.assert_array_equal(ctx_t, ctx_j)
+    sl_t = tsplit(ctx_t, angular=True)
+    assert sum(n > tcodec.EHEMCodec.TINY_UNIFORM_MAX for n in sl_t.level_sizes) >= 2
+    _roundtrip(tm, jm, variables, sl_t, jsplit(ctx_j, angular=True), True, None)
+
+
+@pytest.mark.parametrize("mode", ["staged", "full"])
+def test_host_coder_modes_are_refused(models, mode):
+    """Only rans is ported: scp_tpu's staged and full modes (its host
+    arithmetic coder) raise instead of coding another stream format."""
+    _, _, tm = models
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcodec.EHEMCodec(tm, context_size=CONTEXT, mode=mode)
+    codec = tcodec.EHEMCodec(tm, context_size=CONTEXT)
+    assert codec.mode == "rans" and codec.ac_symbols_per_node == 1

@@ -1,7 +1,9 @@
 """The port stands alone: with JAX, flax, optax, orbax, PyYAML and scp_tpu
 shut out of the import system, every module of scp_tpu_torch (the config
-reader, the trainer, its CLI and tools among them) and chip_smoke imports,
-a small CPU encode/decode runs and a tiny EHEM takes a training step; chip_smoke.py refuses to
+reader, the trainer, the codec CLI, the native octree builder, the metrics
+and tools among them) and chip_smoke imports, a small CPU encode/decode
+runs, a tiny EHEM takes a training step and the codec selftest passes
+(`cli.selftest --device cpu`); chip_smoke.py refuses to
 report success without a card; no source builds through
 torch.utils.cpp_extension (which needs ninja and PyTorch's headers)."""
 
@@ -41,7 +43,11 @@ for m in mods:
 importlib.import_module("chip_smoke")
 for m in ("scp_tpu_torch.config", "scp_tpu_torch.train.data", "scp_tpu_torch.train.trainer",
           "scp_tpu_torch.train.checkpoints", "scp_tpu_torch.cli.train",
-          "scp_tpu_torch.tools.train_bench_ckpt", "scp_tpu_torch.ops.edgeconv_fused"):
+          "scp_tpu_torch.tools.train_bench_ckpt", "scp_tpu_torch.ops.edgeconv_fused",
+          "scp_tpu_torch.cli.codec_common", "scp_tpu_torch.cli.encode",
+          "scp_tpu_torch.cli.decode", "scp_tpu_torch.cli.selftest", "scp_tpu_torch.metrics",
+          "scp_tpu_torch.native.build", "scp_tpu_torch.native.octree_native",
+          "scp_tpu_torch.tools.gene_normals", "scp_tpu_torch.tools.bench"):
     assert m in mods, m
 
 from scp_tpu_torch.codec.ehem_codec import EHEMCodec
@@ -62,7 +68,7 @@ pts = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az), r * np
 sl = split_levels(preprocess_points(pts, system="spher", qs=60.0 / 255).context, angular=True)
 codec = EHEMCodec(model, context_size=128)
 stream, bits, _ = codec.encode_to_stream(sl)
-codes = codec.decode(codec.new_stream_decoder(stream), sl.max_level, np.array(sl.pos_mm),
+codes = codec.decode(codec.new_stream_decoder(stream, len(sl.occ_stream)), sl.max_level, np.array(sl.pos_mm),
                      angular=True, ground_truth=sl.occ_stream, level_sizes=sl.level_sizes)
 assert (codes == sl.occ_stream).all()
 
@@ -77,6 +83,8 @@ data = torch.from_numpy(rng.integers(1, 9, (1, 128, 4, 3)))
 loss = cross_entropy_bits(model(data, torch.rand(1, 128, 3)), label)
 loss.backward()
 assert all(p.grad is not None for p in model.parameters())
+from scp_tpu_torch.cli import selftest
+assert selftest.main(["--device", "cpu"]) == 0
 assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 print("ISOLATED_OK", len(mods), bits)
 '''

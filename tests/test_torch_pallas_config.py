@@ -242,7 +242,8 @@ def test_codec_roundtrip_with_both_switches_is_lossless_and_stamped():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tknn_topk, "knn_topk", spy)
         stream, bits, _ = codec.encode_to_stream(sl)
-        codes = codec.decode(codec.new_stream_decoder(stream, stamp), sl.max_level,
+        codes = codec.decode(codec.new_stream_decoder(stream, len(sl.occ_stream),
+                                                     coding_params=stamp), sl.max_level,
                              np.array(sl.pos_mm), angular=True,
                              ground_truth=sl.occ_stream, level_sizes=sl.level_sizes)
     np.testing.assert_array_equal(codes, sl.occ_stream)
@@ -253,4 +254,4 @@ def test_codec_roundtrip_with_both_switches_is_lossless_and_stamped():
     off_codec = tcodec.EHEMCodec(off, context_size=2048)
     assert "pallas_knn=0;pallas_attn=0" in off_codec.coding_params()
     with pytest.raises(ValueError, match="pallas_knn=1"):
-        off_codec.new_stream_decoder(stream, stamp)
+        off_codec.new_stream_decoder(stream, len(sl.occ_stream), coding_params=stamp)
