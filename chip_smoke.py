@@ -65,6 +65,32 @@ Phases, each printed as it ends (any failure exits non-zero):
      builder built and ran, and its OctreeArrays on the cloud equal the
      numpy builder's.  Prints both preprocess times and the CLI's encode
      and decode walls by stage.
+  9. OctAttention serving on the card: the full-width f32 OctAttention
+     from checkpoints/octattn_synth_l12_v2.npz (through
+     scp_tpu_torch.weights), the bench sweep at lidar level 12, spherical
+     (365,165 nodes in 11 levels; the largest, 119,219 nodes, is 117
+     chunks of 1024 -> 128 lanes).  The model is plain PyTorch (scp_tpu
+     computes it with einsums, no Pallas kernel), so kernels A-E launch 0
+     times here, and the phase says so.
+     9a. the first 1024-row chunk of the largest level: the card's
+         full-window logits against the CPU's (the same f32 model), and
+         the card's KV-cache steps (decode_step / decode_insert at every
+         position) against its full-window logits; atol = rtol = 1e-4;
+     9b. the fused device-rANS schedule, encode and decode in this
+         process: lossless; the payload's bits beside the ideal bits of
+         the same CDF rows, sum(-log2(freq / 65536)), which they may
+         exceed only by the coder's constants (32 bits of state per lane
+         and the 2-byte header); bpp, the walls, the step loop's host
+         time against the device's span, and its kernel launches per
+         position (a profiled level);
+     9c. the CLIs in a temp dir: the sweep as a KITTI .bin, a run dir of
+         configs/train_kitti.yaml with the v2 npz under ckpt/;
+         cli.encode --incremental (the rans schedule) and cli.decode with
+         its ground-truth check: lossless, and the payload byte for byte
+         9b's stream; then the default window schedule on the native host
+         coder (ac.cpp, built with g++), lossless.  Its decoder runs one
+         1024-row forward per node (365,165 at L12), so it codes the same
+         sweep at lidar level WINDOW_LEVEL.  Walls by stage.
 
 Phase 2 also holds A, B, C and E in f32 against their plain versions
 (atol = rtol = 1e-4), and times the attention core that B, C and E share
@@ -99,6 +125,11 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(HERE, "checkpoints", "ehem_synth_f16_sknn.npz")
+OCT_CKPT = os.path.join(HERE, "checkpoints", "octattn_synth_l12_v2.npz")
+OCT_LEVEL = 12  # phase 9: the octattn checkpoint's training level
+# phase 9c's window schedule: one 1024-row forward per node at decode, so
+# it codes the sweep at a coarser level (7,357 nodes)
+WINDOW_LEVEL = 8
 N_POINTS = 120_000
 LIDAR_LEVEL = 16
 TOL = 3e-2  # atol = rtol: bf16 outputs (8-bit mantissa), kernel vs plain summation order
@@ -901,6 +932,203 @@ def cli_phase(model, counted, p4):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- phase 9: OctAttention serving -------------------------------------------
+
+
+def _profiled_largest_level(codec, ctx) -> dict:
+    """The fused encode loop of the cloud's largest level (1024 positions
+    over all its lanes): its host wall (ending in a sync), then the same
+    loop under torch.profiler for its kernel launches and kernel time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    levels, occ, max_level = codec.split_levels(ctx)
+    sizes = [d.shape[0] for d, _ in levels]
+    li = int(np.argmax(sizes))
+    n = sizes[li]
+    lanes = codec.max_lane_bucket(ctx)
+    off = sum(sizes[:li])
+    pos_int = ctx[ctx[:, -1, 1] == li + 1][:, :, 3:6].astype(np.int32)
+    inputs = codec._fused_inputs(*codec._level_bufs(levels[li][0], pos_int, lanes),
+                                 float(np.float32(1.0 / float(2**max_level))), lanes)
+    ts = codec._true_syms(occ[off : off + n].astype(np.int64), n, lanes)
+    positions = min(codec.csz, n)
+    sync(codec.device)
+    t0 = time.perf_counter()
+    codec._rans_level(inputs, n, lanes, true_syms=ts)
+    sync(codec.device)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        codec._rans_level(inputs, n, lanes, true_syms=ts)
+        sync(codec.device)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return dict(level=li + 1, nodes=n, lanes=lanes, positions=positions,
+                host_ms_per_position=1e3 * wall / positions,
+                kernel_launches_per_position=len(kernels) / positions,
+                kernel_ms_per_position=dev_ms / positions,
+                idle_share=1.0 - dev_ms / (1e3 * wall))
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def octattn_phase(device="cuda", n_points=N_POINTS, level=OCT_LEVEL,
+                  window_level=WINDOW_LEVEL) -> dict:
+    """Phase 9 (see the module docstring); returns its numbers.  The
+    arguments serve a rehearsal of the phase on the CPU at a small size."""
+    import shutil
+    import tempfile
+
+    from scp_tpu_torch.cli import decode as decode_cli
+    from scp_tpu_torch.cli import encode as encode_cli
+    from scp_tpu_torch.cli.codec_common import shard_name
+    from scp_tpu_torch.codec.bitstream import unpack_stream
+    from scp_tpu_torch.codec.octattn_codec import OctAttentionCodec
+    from scp_tpu_torch.config import load_config, save_config
+    from scp_tpu_torch.core.pointcloud import read_points
+    from scp_tpu_torch.core.preprocess import kitti_qs, preprocess_points
+    from scp_tpu_torch.models.octattention import OctAttention
+    from scp_tpu_torch.native import ac_native
+    from scp_tpu_torch.weights import load_into
+
+    out = {}
+    t0 = time.time()
+    model = load_into(OctAttention(device=device), OCT_CKPT)
+    cpu_model = load_into(OctAttention(device="cpu"), OCT_CKPT)
+    # float32, as 9c's KITTI .bin holds it (the CLI's payload must equal 9b's)
+    pts = synth_kitti(np.random.default_rng(0), n_points).astype(np.float32)
+    res = preprocess_points(pts, system="spher", qs=kitti_qs(level))
+    ctx = res.context
+    codec = OctAttentionCodec(model)  # rans, fused
+    levels, occ, max_level = codec.split_levels(ctx)
+    sizes = [d.shape[0] for d, _ in levels]
+    lanes = codec.max_lane_bucket(ctx)
+    steps = sum(min(codec.csz, n) for n in sizes)
+    say(f"phase 9 setup: {time.time() - t0:.2f} s; f32 OctAttention from "
+        f"{os.path.basename(OCT_CKPT)}; {ctx.shape[0]} nodes in {len(sizes)} levels "
+        f"(largest {max(sizes)}), {lanes} lanes, {steps} positions per direction; "
+        "kernels A-E: 0 launches on this path (plain PyTorch model)")
+    out.update(nodes=int(ctx.shape[0]), levels=len(sizes), level_sizes=sizes, lanes=lanes,
+               positions=steps)
+
+    # ---- 9a: card vs CPU, KV-cache steps vs the window
+    t0 = time.time()
+    data, pos = levels[int(np.argmax(sizes))]
+    d = torch.from_numpy(data[None, :1024].astype(np.int32))
+    p = torch.from_numpy(pos[None, :1024])
+    with torch.no_grad():
+        full = model(d.to(device), p.to(device))
+        full_cpu = cpu_model(d, p)
+    err_cpu = check_close("9a card vs CPU window", full[0].cpu(), full_cpu[0], tol=F32_TOL)
+    cache = model.init_cache(1)
+    steps_logits = []
+    for j in range(d.shape[1]):
+        dj, pj = d[:, j].to(device), p[:, j].to(device)
+        lg, qs = model.decode_step(dj, pj, cache, j)
+        model.decode_insert(dj, pj, cache, j, qs)
+        steps_logits.append(lg)
+    err_kv = check_close("9a KV-cache steps vs window", torch.cat(steps_logits), full[0],
+                         tol=F32_TOL)
+    say(f"phase 9a: {time.time() - t0:.2f} s; 1024-row window of level "
+        f"{int(np.argmax(sizes)) + 1}: card vs CPU max_abs_err {err_cpu:.3g}, KV-cache steps "
+        f"vs window max_abs_err {err_kv:.3g} (atol = rtol = {F32_TOL})")
+    out.update(err_card_vs_cpu=err_cpu, err_steps_vs_window=err_kv)
+
+    # ---- 9b: fused device-rANS encode + decode in process
+    sync(device)
+    t0 = time.perf_counter()
+    enc = codec.new_rans_encoder(lanes)
+    t_loop = codec.encode_incremental_into(enc, ctx)
+    ideal = enc.ideal_bits()
+    payload = enc.finish()
+    t_enc = time.perf_counter() - t0
+    sync(device)
+    t0 = time.perf_counter()
+    dec = codec.new_rans_decoder(payload)
+    codes = codec.decode_incremental_rans(dec, max_level, ground_truth=occ)
+    sync(device)
+    t_dec = time.perf_counter() - t0
+    if not (codes == occ).all():
+        raise AssertionError("phase 9b: decode is not lossless")
+    bits = len(payload) * 8
+    slack = 32 * lanes + 16
+    if not ideal <= bits <= ideal + slack:
+        raise AssertionError(f"phase 9b: payload {bits} bits vs ideal {ideal:.1f} + {slack}")
+    prof = _profiled_largest_level(codec, ctx)
+    say(f"phase 9b fused rans: lossless, payload {bits} bits ({len(payload)} bytes), ideal "
+        f"{ideal:.1f} bits, excess {bits - ideal:.1f} <= {slack}; bpp {bits / n_points:.4f}, "
+        f"bits/node {bits / ctx.shape[0]:.4f}; encode {t_enc:.3f} s (level loops {t_loop:.3f} s), "
+        f"decode {t_dec:.3f} s, {1e3 * t_loop / steps:.4f} ms host wall per encode position; "
+        f"the largest level's encode loop (level {prof['level']}, {prof['lanes']} lanes, "
+        f"{prof['positions']} positions): {prof['host_ms_per_position']:.4f} ms host wall, "
+        f"{prof['kernel_launches_per_position']:.1f} kernel launches and "
+        f"{prof['kernel_ms_per_position']:.4f} ms of kernels per position (idle share "
+        f"{prof['idle_share']:.3f})")
+    out.update(payload_bytes=len(payload), payload_bits=bits, ideal_bits=ideal,
+               bpp=bits / n_points, encode_s=t_enc, encode_loop_s=t_loop, decode_s=t_dec,
+               step_profile=prof)
+
+    # ---- 9c: the CLIs
+    work = tempfile.mkdtemp(prefix="chip_smoke_oct_")
+    try:
+        seq = os.path.join(work, "sequences", "00")
+        os.makedirs(seq)
+        cloud = os.path.join(seq, "000000.bin")
+        np.hstack([pts, np.zeros((n_points, 1), np.float32)]).tofile(cloud)
+        run = os.path.join(work, "run")
+        save_config(load_config("train_kitti.yaml", os.path.join(HERE, "configs")), run)
+        ckpt = os.path.join(run, "ckpt", os.path.basename(OCT_CKPT))
+        os.makedirs(os.path.dirname(ckpt))
+        shutil.copyfile(OCT_CKPT, ckpt)
+        flags = ["--ckpt_path", ckpt, "--type", "kitti", "--test_files", cloud,
+                 *(["--device", "cpu"] if device == "cpu" else [])]
+        shards = os.path.join(work, "shards")
+        os.makedirs(shards)
+        cli = {}
+        for tag, lv, extra in (("rans", level, ["--incremental"]),
+                               ("window", window_level, [])):
+            bins = os.path.join(work, f"bins_{tag}")
+            ref = preprocess_points(read_points(cloud), system="spher", qs=kitti_qs(lv))
+            np.save(os.path.join(shards, shard_name(cloud, "kitti")), ref.context)
+            t0 = time.perf_counter()
+            (e,) = encode_cli.main([*flags, "--lidar_level", str(lv), "--spher",
+                                    "--out_dir", bins, *extra])
+            enc_wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            (dd,) = decode_cli.main([*flags, "--preproc_path", shards, "--bin_dir", bins])
+            dec_wall = time.perf_counter() - t0
+            got = np.sort(dd["points"].astype(np.float64), axis=0)
+            want = np.sort(ref.recon_points.astype(np.float64), axis=0)
+            if got.shape != want.shape or not np.allclose(got, want, rtol=0, atol=1e-4):
+                raise AssertionError(f"phase 9c {tag}: decoded points differ from the cloud")
+            with open(e["outputfile"], "rb") as fh:
+                header, body = unpack_stream(fh.read())
+            if tag == "rans" and body != payload:
+                raise AssertionError("phase 9c: the CLI's payload differs from 9b's stream")
+            et, dt = e["timings"], dd["timings"]
+            say(f"  9c {tag} ({header.coding_mode}, L{lv}, {e['oct_num']} nodes): encode "
+                f"wall {enc_wall:.3f} s (preprocess {et['preprocess']:.3f}, octree "
+                f"{et['octree']:.3f}, model + coder {et['model_coder']:.3f}, metrics "
+                f"{et['metrics']:.3f}, file I/O {et['file_io']:.3f}); decode wall "
+                f"{dec_wall:.3f} s (model + coder {dt['model_coder']:.3f}, deoctree "
+                f"{dt['deoctree']:.3f}, file I/O {dt['file_io']:.3f}); bpp {e['bpp']:.4f}, "
+                f"{len(body)} payload bytes; lossless against the shard")
+            cli[tag] = dict(level=lv, nodes=e["oct_num"], bpp=e["bpp"],
+                            payload_bytes=len(body), encode_wall_s=enc_wall,
+                            decode_wall_s=dec_wall, encode_timings=et, decode_timings=dt,
+                            coding_mode=header.coding_mode, stamp=header.coding_params)
+        if not ac_native.available():
+            raise AssertionError("the native range coder did not build")
+        say("  9c: the rans payload equals 9b's stream byte for byte; the window schedule "
+            "ran on the native range coder (ac.cpp)")
+        out["cli"] = cli
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1052,6 +1280,21 @@ def main() -> int:
     for k in "ABC":
         rows[k]["cli_launches"] = p8["launches"][k]
     say(json.dumps({"cli": p8}))
+
+    # ---- 9. OctAttention serving (no kernel of A-E on its path)
+    from scp_tpu_torch.tools.profile_train import reset_counts
+
+    t0 = time.time()
+    reset_counts(counted.values())
+    p9 = octattn_phase()
+    launches9 = {k: fn.launches for k, fn in counted.items()}
+    if any(launches9.values()):
+        raise AssertionError(f"phase 9 launched kernels of A-E: {launches9}")
+    say(f"phase 9 OctAttention: {time.time() - t0:.2f} s; kernel launches A/B/C/D/E "
+        f"{[launches9[k] for k in 'ABCDE']}")
+    for k in "ABCDE":
+        rows[k]["octattn_launches"] = 0
+    say(json.dumps({"octattn": p9}))
     say(f"total wall {time.time() - t_start:.1f} s")
 
     for k, prefixes in (("A", ("mlp_sm90<",)), ("B", ("gemm_sm90<",)), ("C", ("gemm_sm90<",)),

@@ -1,5 +1,6 @@
 """Shared encode/decode session logic of the port's codec CLIs (the twin of
-scp_tpu/cli/codec_common.py, EHEM in rans mode).
+scp_tpu/cli/codec_common.py: EHEM in rans mode, OctAttention in its three
+schedules).
 
 Handles: the run config, the weights, the preprocessing cache (`_meta.npy`
 compatible with the reference's, encode_dataset_ehem.py:132, and the
@@ -12,9 +13,19 @@ bench `.npz` (the JAX package's format).  scp_tpu's orbax checkpoint
 directories are refused: the card's machine has no orbax.
 
 What scp_tpu reads from the environment are constructor arguments here:
-`dtype` (SCP_CODEC_DTYPE, bf16 by default), `static_knn`, `pallas_knn`,
-`pallas_attn`; and `device` (cuda unless told otherwise).  OctAttention
-runs and the staged / full coding modes are not ported yet (ROADMAP.md).
+`dtype` (SCP_CODEC_DTYPE: bf16 for EHEM and f32 for OctAttention by
+default, as there), EHEM's `static_knn`, `pallas_knn`, `pallas_attn`,
+OctAttention's `octattn_coder` (SCP_OCTATTN_CODER), `octattn_fused`
+(SCP_OCTATTN_FUSED) and `octrans_cap` (SCP_OCTRANS_CAP); and `device`
+(cuda unless told otherwise).
+
+An OctAttention stream's header names its schedule (coding_mode "rans":
+the incremental schedule on the device rANS coder; "incr": the same on the
+host coder; "full": the window schedule on the host coder), and decode
+follows it.  The window schedule's stamp also names its window (fast or
+sequential) and level_wise, which scp_tpu leaves to the decoder's flags:
+a decode with other flags is refused instead of desynchronizing the
+coder.  EHEM's staged / full coding modes are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,7 +37,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from scp_tpu_torch import resolve_device
+from scp_tpu_torch import ac, resolve_device
 from scp_tpu_torch.codec.bitstream import (
     StreamHeader,
     pack_stream,
@@ -34,6 +45,8 @@ from scp_tpu_torch.codec.bitstream import (
     unpack_stream,
 )
 from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+from scp_tpu_torch.codec.octattn_codec import OctAttentionCodec
+from scp_tpu_torch.codec.octattn_rans import DEFAULT_CAP, OctRansEncoder
 from scp_tpu_torch.codec.slices import split_levels
 from scp_tpu_torch.config import load_run_config
 from scp_tpu_torch.core.octree import deoctree
@@ -41,7 +54,7 @@ from scp_tpu_torch.core.pointcloud import read_points, write_ply
 from scp_tpu_torch.core.preprocess import ford_qs, kitti_qs, preprocess_points
 from scp_tpu_torch.core.quantize import QuantGrid
 from scp_tpu_torch.metrics import PEAKS, chamfer, d1_d2_psnr
-from scp_tpu_torch.models.ehem import EHEM
+from scp_tpu_torch.models import build_model
 from scp_tpu_torch.train import checkpoints
 from scp_tpu_torch.weights import load_into
 
@@ -66,7 +79,13 @@ def level_qs(data_type: str, lidar_level: int) -> float:
     return kitti_qs(lidar_level) if data_type != "ford" else ford_qs(lidar_level)
 
 
-def load_weights(model: EHEM, ckpt_path: str) -> EHEM:
+def _level_counts(ctx: np.ndarray, max_level: int) -> np.ndarray:
+    """Per-level node counts of one (N, 4, 6) shard for the stream header."""
+    return np.bincount(ctx[:, -1, 1].astype(np.int64),
+                       minlength=max_level + 1)[1 : max_level + 1].astype(np.int64)
+
+
+def load_weights(model: torch.nn.Module, ckpt_path: str) -> torch.nn.Module:
     """Fill `model` from a port checkpoint: the trainer's `torch.save`
     file or a bench `.npz`."""
     if os.path.isdir(ckpt_path):
@@ -81,30 +100,57 @@ def load_weights(model: EHEM, ckpt_path: str) -> EHEM:
     return model
 
 
+def finish_stream(enc):
+    """-> (payload bytes, bit count, n_sym for the header) of any encoder."""
+    if isinstance(enc, ac.StreamingEncoder):
+        n_sym = enc.n_sym
+        payload, bits = enc.finish()
+        return payload, bits, n_sym
+    return EHEMCodec.finish_stream(enc)
+
+
 class CodecSession:
     """One model + codec serving encode_file / decode_file calls.
     `timings` holds the seconds of the last call, by stage."""
 
-    def __init__(self, ckpt_path: str, run_dir: str, *, dtype: str = "bf16",
+    def __init__(self, ckpt_path: str, run_dir: str, *, dtype: str | None = None,
                  static_knn: bool = False, pallas_knn: bool = False,
-                 pallas_attn: bool = False, device=None):
+                 pallas_attn: bool = False, octattn_coder: str = "rans",
+                 octattn_fused: bool = True, octrans_cap: int = DEFAULT_CAP, device=None):
         self.cfg = load_run_config(run_dir)
-        if not self.cfg.model.class_name.upper().startswith("EHEM"):
-            raise NotImplementedError(
-                f"model {self.cfg.model.class_name!r}: the port's codec CLI codes EHEM "
-                "runs only; OctAttention is still to port (ROADMAP.md, queue 1)")
+        self.is_ehem = str(self.cfg.model.class_name).upper().startswith("EHEM")
+        # EHEM codes in bf16 by default, OctAttention in f32 (scp_tpu's
+        # SCP_CODEC_DTYPE defaults)
+        dtype = dtype or ("bf16" if self.is_ehem else "f32")
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
-        self.is_ehem = True
         self.device = resolve_device(device)
         # parameters stay f32; dtype sets the compute dtype, and is stamped
         # in coding_params so an encode/decode mismatch is refused
-        self.model = EHEM.from_config(
-            self.cfg, DTYPES[dtype], static_knn=static_knn, pallas_knn=pallas_knn,
-            pallas_attn=pallas_attn, device=self.device)
+        switches = (dict(static_knn=static_knn, pallas_knn=pallas_knn, pallas_attn=pallas_attn)
+                    if self.is_ehem else {})
+        self.model = build_model(self.cfg, DTYPES[dtype], device=self.device, **switches)
         load_weights(self.model, ckpt_path)
-        self.codec = EHEMCodec(self.model, self.cfg.model.context_size)
+        if self.is_ehem:
+            self.codec = EHEMCodec(self.model, self.cfg.model.context_size)
+        else:
+            self.codec = OctAttentionCodec(self.model, mode=octattn_coder, fused=octattn_fused,
+                                           stream_cap=octrans_cap)
         self.timings: dict[str, float] = {}
+
+    def octattn_schedule(self, incremental: bool) -> str:
+        """The coding_mode an OctAttention encode writes."""
+        if not incremental:
+            return "full"
+        return "rans" if self.codec.mode == "rans" else "incr"
+
+    def _coding_params(self, schedule: str, sequential: bool, level_wise: bool) -> str:
+        if self.is_ehem:
+            return self.codec.coding_params()
+        stamp = self.codec.coding_params(schedule)
+        if schedule == "full":
+            stamp += f";window={'sequential' if sequential else 'fast'};level_wise={int(level_wise)}"
+        return stamp
 
     def _tick(self, stage: str, t0: float) -> float:
         now = time.perf_counter()
@@ -280,9 +326,18 @@ class CodecSession:
         lidar_level=12,
         system="spher",
         preproc_path="",
+        sequential=False,
+        incremental=False,
         mullevel=False,
+        level_wise=True,
         normals_dir="",
     ) -> dict:
+        """`sequential`, `incremental` and `level_wise` pick OctAttention's
+        schedule; an EHEM run codes level by level in rans mode and refuses
+        the first two (they would be ignored)."""
+        if self.is_ehem and (sequential or incremental):
+            raise ValueError("--sequential and --incremental are OctAttention schedules; an "
+                             "EHEM run codes in rans mode")
         self.timings = {}
         results, metrics = self.preproc(
             ori_file, data_type, lidar_level, system, preproc_path, mullevel,
@@ -291,19 +346,42 @@ class CodecSession:
         angular = system in ("spher", "cylin")
 
         t = time.perf_counter()
-        enc = self.codec.new_stream_encoder()
+        schedule = self.codec.mode if self.is_ehem else self.octattn_schedule(incremental)
+        if self.is_ehem:
+            enc = self.codec.new_stream_encoder()
+        elif schedule == "rans":
+            enc = self.codec.new_rans_encoder(
+                max(self.codec.max_lane_bucket(ctx) for ctx, _ in results))
+        else:
+            enc = ac.StreamingEncoder()
         sub_sizes, mms, max_levels, lvl_sizes = [], [], [], []
         for ctx, _grid in results:
-            # deepest-level clip applied symmetrically at encode
-            # (split_levels + in-program) and decode (header stamp) —
-            # reference encode_dataset_ehem.py:86 / Embed(19) bound
-            slices = split_levels(ctx, angular=angular, lidar_level_clip=lidar_level)
-            self.codec.encode_into(enc, slices, lidar_clip=lidar_level)
-            mms.append(np.array(slices.pos_mm, np.int64))
-            max_levels.append(slices.max_level)
-            sub_sizes.append(slices.occ_stream.shape[0])
-            lvl_sizes.append(np.asarray(slices.level_sizes, np.int64))
-        payload, bits, n_sym = EHEMCodec.finish_stream(enc)
+            if self.is_ehem:
+                # deepest-level clip applied symmetrically at encode
+                # (split_levels + in-program) and decode (header stamp) —
+                # reference encode_dataset_ehem.py:86 / Embed(19) bound
+                slices = split_levels(ctx, angular=angular, lidar_level_clip=lidar_level)
+                self.codec.encode_into(enc, slices, lidar_clip=lidar_level)
+                mms.append(np.array(slices.pos_mm, np.int64))
+                max_levels.append(slices.max_level)
+                sub_sizes.append(slices.occ_stream.shape[0])
+                lvl_sizes.append(np.asarray(slices.level_sizes, np.int64))
+                continue
+            if schedule == "rans":
+                self.codec.encode_incremental_into(enc, ctx)
+            elif schedule == "incr":
+                rows, syms, _ = self.codec.encode_incremental(ctx)
+                enc.append_quantized(rows, syms)
+            else:
+                pdf, syms, _ = self.codec.encode(ctx, sequential=sequential,
+                                                 level_wise=level_wise)
+                enc.append(pdf, syms)
+            _, occ, ml = self.codec.split_levels(ctx)
+            max_levels.append(ml)
+            sub_sizes.append(occ.shape[0])
+            mms.append(np.zeros((ml, 2), np.int64))
+            lvl_sizes.append(_level_counts(ctx, ml))
+        payload, bits, n_sym = finish_stream(enc)
         elapsed = time.perf_counter() - t
         t = self._tick("model_coder", t)
 
@@ -317,9 +395,9 @@ class CodecSession:
             qs_rho=float(level_qs(data_type, lidar_level)),
             pos_mm=np.concatenate(mms, axis=0) if mms else np.zeros((0, 2), np.int64),
             subtree_sizes=tuple(sub_sizes),
-            coding_mode=self.codec.mode,
+            coding_mode=schedule,
             backend=self.codec.backend,
-            coding_params=self.codec.coding_params(),
+            coding_params=self._coding_params(schedule, sequential, level_wise),
             subtree_levels=tuple(max_levels),
             level_sizes=np.concatenate(lvl_sizes),
             grid_qs=np.stack(
@@ -366,8 +444,12 @@ class CodecSession:
 
     # -- decode --------------------------------------------------------------
 
-    def decode_file(self, binfile, out_ply=None, ground_truth: np.ndarray | None = None):
-        """Bitstream -> occupancy codes -> Cartesian points (+ .ply)."""
+    def decode_file(self, binfile, out_ply=None, ground_truth: np.ndarray | None = None,
+                    sequential=False, level_wise=True):
+        """Bitstream -> occupancy codes -> Cartesian points (+ .ply).  The
+        header's coding_mode picks the schedule; `sequential` and
+        `level_wise` must be the window-schedule encoder's (its stamp names
+        them)."""
         self.timings = {}
         t = time.perf_counter()
         with open(binfile, "rb") as f:
@@ -380,24 +462,34 @@ class CodecSession:
                 f"bitstream was encoded on backend {header.backend!r}; decoding on "
                 f"{self.codec.backend!r} is not supported"
             )
-        if header.coding_mode != self.codec.mode:
+        mode = header.coding_mode
+        if self.is_ehem and mode != self.codec.mode:
             raise NotImplementedError(
-                f"bitstream coded in mode {header.coding_mode!r}: the port decodes 'rans' "
-                "streams only; the staged and full modes are still to port (ROADMAP.md)")
-        want_params = self.codec.coding_params()
+                f"bitstream coded in mode {mode!r}: the port decodes EHEM 'rans' streams "
+                "only; the staged and full modes are still to port (ROADMAP.md)")
+        if not self.is_ehem and mode not in ("rans", "incr", "full"):
+            raise ValueError(f"bitstream coded in mode {mode!r}, which is no OctAttention "
+                             "schedule ('rans', 'incr' or 'full')")
+        want_params = self._coding_params(mode, sequential, level_wise)
         if header.coding_params and header.coding_params != want_params:
-            # same contract as the backend stamp: these settings change the
-            # phase programs' float math -> CDFs -> coder sync
+            # these settings change the CDF rows or the stream layout: a
+            # mismatch would desync the coder
             raise RuntimeError(
                 f"bitstream coded with {header.coding_params!r} but this session runs "
-                f"{want_params!r}; pass the matching --dtype / --static-knn / "
-                "--pallas-knn / --pallas-attn"
+                f"{want_params!r}; pass the encoder's --dtype"
+                + (" / --static-knn / --pallas-knn / --pallas-attn" if self.is_ehem else
+                   " / --octattn-steps / --octrans-cap / --sequential / --level_wise")
             )
         # per-subtree grids, octree depths and per-level node counts all
         # live in the header: a bare .bin decodes with no sidecar
         max_levels = header.subtree_levels
         grids = header.grids()
-        dec = self.codec.new_stream_decoder(payload, header.n_sym)
+        if self.is_ehem:
+            dec = self.codec.new_stream_decoder(payload, header.n_sym)
+        elif mode == "rans":
+            dec = self.codec.new_rans_decoder(payload)
+        else:
+            dec = ac.ArithmeticDecoder(payload, header.n_sym)
 
         start = time.perf_counter()
         parts = []
@@ -413,15 +505,23 @@ class CodecSession:
                 gt = ground_truth[gt_off : gt_off + int(header.subtree_sizes[i])]
             gt_off += int(header.subtree_sizes[i])
             t = time.perf_counter()
-            codes = self.codec.decode(
-                dec,
-                ml,
-                mm,
-                angular=header.angular,
-                lidar_clip=int(header.lidar_clip),
-                ground_truth=gt,
-                level_sizes=sizes_i,
-            )
+            if self.is_ehem:
+                codes = self.codec.decode(
+                    dec,
+                    ml,
+                    mm,
+                    angular=header.angular,
+                    lidar_clip=int(header.lidar_clip),
+                    ground_truth=gt,
+                    level_sizes=sizes_i,
+                )
+            elif mode == "rans":
+                codes = self.codec.decode_incremental_rans(dec, ml, ground_truth=gt)
+            elif mode == "incr":
+                codes = self.codec.decode_incremental(dec, ml, ground_truth=gt)
+            else:
+                codes = self.codec.decode(dec, ml, ground_truth=gt, sequential=sequential,
+                                          level_wise=level_wise)
             t = self._tick("model_coder", t)
             parts.append(grids[i].from_grid(deoctree(codes.astype(np.int64) + 1)))
             self._tick("deoctree", t)

@@ -6,9 +6,11 @@
 Finds the matching .bin in the run's test_output dir, decodes it (with the
 ground-truth assert when the preprocessed shard is available — reference
 decode_ehem.py:184), and writes the reconstructed .ply.  Takes the
-encoder's `--device`, `--dtype`, `--static-knn`, `--pallas-knn` and
-`--pallas-attn` (cli/encode.py); a stream stamped with other settings, or
-written by scp_tpu, is refused.
+encoder's `--device` and session options (cli/encode.py) and, for an
+OctAttention window-schedule stream, its `--sequential` and
+`--level_wise`; the header names the schedule, so `--incremental` is not
+needed.  A stream stamped with other settings, or written by scp_tpu, is
+refused.
 """
 
 from __future__ import annotations
@@ -19,12 +21,7 @@ import re
 
 import numpy as np
 
-from scp_tpu_torch.cli.encode import (
-    add_session_args,
-    refuse_octattn_flags,
-    resolve_run,
-    session_kwargs,
-)
+from scp_tpu_torch.cli.encode import add_session_args, resolve_run, session_kwargs
 
 
 def get_args(argv=None):
@@ -34,11 +31,11 @@ def get_args(argv=None):
     ap.add_argument("--preproc_path", type=str, default="")
     ap.add_argument("--type", type=str, default="kitti")
     ap.add_argument("--sequential", action="store_true",
-                    help="OctAttention only (refused)")
+                    help="OctAttention window schedule: the encoder's --sequential")
     ap.add_argument("--level_wise", action="store_true",
-                    help="(no effect: EHEM always codes level by level)")
+                    help="OctAttention window schedule: the encoder's --level_wise")
     ap.add_argument("--incremental", action="store_true",
-                    help="OctAttention only (refused)")
+                    help="(no effect: the stream's header names its schedule)")
     ap.add_argument("--mullevel", action="store_true")
     ap.add_argument("--no_check", action="store_true")
     ap.add_argument("--bin_dir", type=str, default=None,
@@ -50,7 +47,6 @@ def get_args(argv=None):
 
 def main(argv=None):
     args = get_args(argv)
-    refuse_octattn_flags(args)
     from scp_tpu_torch.cli.codec_common import CodecSession, shard_name
 
     run_dir, out_dir = resolve_run(args.ckpt_path)
@@ -95,7 +91,9 @@ def main(argv=None):
             )
 
         out_ply = os.path.join(out_dir, stem + ".ply")
-        pts, elapsed = session.decode_file(binfile, out_ply, ground_truth=gt)
+        pts, elapsed = session.decode_file(binfile, out_ply, ground_truth=gt,
+                                           sequential=args.sequential,
+                                           level_wise=args.level_wise or session.is_ehem)
         decoded.append({"binfile": binfile, "out_ply": out_ply, "points": pts,
                         "seconds": elapsed, "timings": dict(session.timings)})
         total += elapsed

@@ -4,6 +4,14 @@
         --type kitti --lidar_level 16 --spher --static-knn \
         --preproc_path data/kitti/spher_16/ --test_files 'data/.../*.ply'
 
+An OctAttention run (config `model.class_name: OctAttention`) codes with
+the window schedule by default (host coder; `--sequential` slides the
+window, `--level_wise` restarts it at every level), and with the
+incremental KV-cache schedule under `--incremental`: on the device rANS
+coder (`--octattn-coder rans`, the default; the fused level loop, or
+scp_tpu's per-position loop under `--octattn-steps`) or on the host coder
+(`--octattn-coder full`).
+
 Reads the run's config, loads the checkpoint (the trainer's .pt or a
 bench .npz), preprocesses (or reuses cached shards), entropy-codes each
 cloud, writes the bitstream (reference-style filename + self-contained
@@ -12,9 +20,11 @@ appending the aggregate of a glob to test_results_same_<type>_<level>.txt
 in the working directory (reference encode.py:293-305).
 
 Runs on the card unless given `--device cpu`.  `--dtype`, `--static-knn`,
-`--pallas-knn` and `--pallas-attn` stand for scp_tpu's SCP_CODEC_DTYPE,
-SCP_STATIC_KNN, SCP_PALLAS_KNN and SCP_PALLAS_ATTN; the decoder must be
-given the same ones (the stream's stamp names them).
+`--pallas-knn`, `--pallas-attn`, `--octattn-coder`, `--octattn-steps` and
+`--octrans-cap` stand for scp_tpu's SCP_CODEC_DTYPE, SCP_STATIC_KNN,
+SCP_PALLAS_KNN, SCP_PALLAS_ATTN, SCP_OCTATTN_CODER, SCP_OCTATTN_FUSED=0
+and SCP_OCTRANS_CAP; the decoder must be given the same ones (the stream's
+stamp names them).
 """
 
 from __future__ import annotations
@@ -25,34 +35,37 @@ import os
 
 import numpy as np
 
+from scp_tpu_torch.codec.octattn_rans import DEFAULT_CAP
+
 
 def add_session_args(ap: argparse.ArgumentParser) -> None:
     """The options every codec CLI of the port takes (cli/train.py's names)."""
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default cuda; cpu runs the plain PyTorch path)")
-    ap.add_argument("--dtype", type=str, default="bf16", choices=["bf16", "f32"],
-                    help="compute dtype of the model (SCP_CODEC_DTYPE)")
+    ap.add_argument("--dtype", type=str, default=None, choices=["bf16", "f32"],
+                    help="compute dtype of the model (SCP_CODEC_DTYPE; default bf16 for "
+                    "EHEM, f32 for OctAttention)")
     ap.add_argument("--static-knn", action="store_true",
                     help="reuse the position graph in every EdgeConv (SCP_STATIC_KNN)")
     ap.add_argument("--pallas-knn", action="store_true",
                     help="kernel D for graphs of N >= 2048 rows (SCP_PALLAS_KNN)")
     ap.add_argument("--pallas-attn", action="store_true",
                     help="kernel E in the padded Swin stages (SCP_PALLAS_ATTN)")
+    ap.add_argument("--octattn-coder", type=str, default="rans", choices=["rans", "full"],
+                    help="OctAttention's incremental coder: device rANS or the host "
+                    "coder (SCP_OCTATTN_CODER)")
+    ap.add_argument("--octattn-steps", action="store_true",
+                    help="OctAttention rANS: the per-position loop instead of the fused "
+                    "level loop (SCP_OCTATTN_FUSED=0)")
+    ap.add_argument("--octrans-cap", type=int, default=DEFAULT_CAP,
+                    help="OctAttention rANS: the stream buffer's bytes (SCP_OCTRANS_CAP)")
 
 
 def session_kwargs(args) -> dict:
     return dict(dtype=args.dtype, static_knn=args.static_knn, pallas_knn=args.pallas_knn,
-                pallas_attn=args.pallas_attn, device=args.device)
-
-
-def refuse_octattn_flags(args) -> None:
-    """--sequential and --incremental select OctAttention schedules, which
-    the port does not have; given with an EHEM run they would be ignored
-    silently, so they are refused."""
-    for flag in ("sequential", "incremental"):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is an OctAttention option; the port codes EHEM "
-                             "runs only (OctAttention is still to port, ROADMAP.md)")
+                pallas_attn=args.pallas_attn, octattn_coder=args.octattn_coder,
+                octattn_fused=not args.octattn_steps, octrans_cap=args.octrans_cap,
+                device=args.device)
 
 
 def get_args(argv=None):
@@ -60,13 +73,14 @@ def get_args(argv=None):
     ap.add_argument("--ckpt_path", type=str, required=True)
     ap.add_argument("--test_files", nargs="*", default=[])
     ap.add_argument("--sequential", action="store_true",
-                    help="OctAttention only (refused)")
+                    help="OctAttention: slide the window by one node")
     ap.add_argument("--incremental", action="store_true",
-                    help="OctAttention only (refused)")
+                    help="OctAttention: the KV-cache schedule (see --octattn-coder)")
     ap.add_argument("--type", type=str, default="obj", choices=["obj", "kitti", "ford"])
     ap.add_argument("--lidar_level", type=int, default=12)
     ap.add_argument("--level_wise", action="store_true",
-                    help="(no effect: EHEM always codes level by level)")
+                    help="OctAttention window schedule: restart the window at every level "
+                    "(EHEM always codes level by level)")
     ap.add_argument("--cylin", action="store_true")
     ap.add_argument("--spher", action="store_true")
     ap.add_argument("--mullevel", action="store_true")
@@ -106,7 +120,6 @@ def resolve_run(ckpt_path: str):
 
 def main(argv=None):
     args = get_args(argv)
-    refuse_octattn_flags(args)
     from scp_tpu_torch.cli.codec_common import CodecSession
 
     run_dir, out_dir = resolve_run(args.ckpt_path)
@@ -131,7 +144,10 @@ def main(argv=None):
             lidar_level=args.lidar_level,
             system=system,
             preproc_path=args.preproc_path,
+            sequential=args.sequential,
+            incremental=args.incremental,
             mullevel=args.mullevel,
+            level_wise=args.level_wise,
             normals_dir=args.normals_dir,
         )
         all_stats.append({**stats, "timings": dict(session.timings)})

@@ -1,12 +1,14 @@
 """Fast end-to-end self-test of the port: synthetic cloud -> encode ->
-decode -> assert (the EHEM arm of scp_tpu/cli/selftest.py).
+decode -> assert (the twin of scp_tpu/cli/selftest.py).
 
-    python -m scp_tpu_torch.cli.selftest [--device cpu] [--points N] [--system spher]
+    python -m scp_tpu_torch.cli.selftest [--model ehem|octattn] [--device cpu]
+        [--points N] [--system spher]
 
 Runs on the card unless given `--device cpu`.  Exercises preprocessing,
-the octree build, the EHEM codec (device rANS) and the decode-time
-ground-truth assert on a narrow EHEM with weights drawn from a seed.
-Exit code 0 == lossless.  `--model octattn` is not ported yet.
+the octree build, the codec (EHEM: device rANS; OctAttention: the window
+schedule on the native host coder) and the decode-time ground-truth
+assert, on a narrow model with weights drawn from a seed.  Exit code 0 ==
+lossless.
 """
 
 from __future__ import annotations
@@ -24,18 +26,19 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default cuda; cpu runs the plain PyTorch path)")
     args = ap.parse_args(argv)
-    if args.model != "ehem":
-        raise NotImplementedError("selftest --model octattn: OctAttention is still to "
-                                  "port (ROADMAP.md, queue 1)")
 
     import numpy as np
     import torch
 
+    from scp_tpu_torch import ac
     from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+    from scp_tpu_torch.codec.octattn_codec import OctAttentionCodec
     from scp_tpu_torch.codec.slices import split_levels
     from scp_tpu_torch.core.octree import deoctree
     from scp_tpu_torch.core.preprocess import preprocess_points
     from scp_tpu_torch.models.ehem import EHEM
+    from scp_tpu_torch.models.layers import flax_init_
+    from scp_tpu_torch.models.octattention import OctAttention
 
     rng = np.random.default_rng(7)
     n = args.points
@@ -52,23 +55,36 @@ def main(argv=None):
 
     t0 = time.time()
     torch.manual_seed(0)
-    model = EHEM(
-        self_depths=(2, 2), cross_depths=(1,), embed_dim=64, num_heads=2,
-        window_size=16, mlp_ratio=2.0, knn_k=4, device=args.device,
-    )
-    codec = EHEMCodec(model, context_size=64)
-    angular = args.system != "cart"
-    slices = split_levels(ctx, angular=angular)
-    stream, bits, _ = codec.encode_to_stream(slices)
-    dec = codec.new_stream_decoder(
-        stream, codec.ac_symbols_per_node * slices.occ_stream.shape[0]
-    )
-    codes = codec.decode(
-        dec, slices.max_level, np.array(slices.pos_mm, np.int64),
-        angular=angular, ground_truth=slices.occ_stream,
-        level_sizes=slices.level_sizes,
-    )
-    occ_stream = slices.occ_stream
+    if args.model == "ehem":
+        model = EHEM(
+            self_depths=(2, 2), cross_depths=(1,), embed_dim=64, num_heads=2,
+            window_size=16, mlp_ratio=2.0, knn_k=4, device=args.device,
+        )
+        codec = EHEMCodec(model, context_size=64)
+        angular = args.system != "cart"
+        slices = split_levels(ctx, angular=angular)
+        stream, bits, _ = codec.encode_to_stream(slices)
+        dec = codec.new_stream_decoder(
+            stream, codec.ac_symbols_per_node * slices.occ_stream.shape[0]
+        )
+        codes = codec.decode(
+            dec, slices.max_level, np.array(slices.pos_mm, np.int64),
+            angular=angular, ground_truth=slices.occ_stream,
+            level_sizes=slices.level_sizes,
+        )
+        occ_stream = slices.occ_stream
+    else:
+        model = OctAttention(
+            occ_embed_dim=16, level_embed_dim=4, octant_embed_dim=4,
+            abs_pos_embed_dim=8, num_layers=2, num_heads=2, hidden_dim=64,
+            context_size=32, device=args.device,
+        )
+        flax_init_(model, torch.Generator().manual_seed(0))
+        codec = OctAttentionCodec(model)
+        stream, bits, _ = codec.encode_to_stream(ctx)
+        _, occ_stream, max_level = codec.split_levels(ctx)
+        dec = ac.ArithmeticDecoder(stream, occ_stream.shape[0])
+        codes = codec.decode(dec, max_level, ground_truth=occ_stream)
 
     if not (codes == occ_stream).all():
         raise AssertionError("decode != encode symbols")

@@ -1,7 +1,7 @@
 """g++ build of the port's native host library (the twin of
-scp_tpu/native/build.py, for the octree builder only).
+scp_tpu/native/build.py, for the octree builder and the range coder).
 
-`src/octree.cpp` is compiled with scp_tpu's flags into
+`src/octree.cpp` and `src/ac.cpp` are compiled with scp_tpu's flags into
 `scp_tpu_torch/_build/`, named by a hash of the source and the flags, and
 loaded with ctypes (a plain C interface; no PyTorch headers).  Nothing runs
 at import time: the first `load_library()` builds.
@@ -24,7 +24,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "src")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("octree.cpp",)
+SOURCES = ("ac.cpp", "octree.cpp")
 CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-march=native", "-fopenmp"]
 
 _lock = threading.Lock()

@@ -48,7 +48,8 @@ class ShardDataset:
         process_count 1 (its multi-host slicing is not ported)."""
         if mode != "ehem":
             raise NotImplementedError(
-                f"ShardDataset mode {mode!r}: OctAttention is not ported yet; only 'ehem' is")
+                f"ShardDataset mode {mode!r}: OctAttention training is not ported yet; only "
+                "'ehem' is")
         self.files = sorted(glob.glob(root))
         if not self.files:
             raise FileNotFoundError(f"no shards match {root!r}")

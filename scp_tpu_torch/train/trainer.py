@@ -75,8 +75,8 @@ class Trainer:
     def __init__(self, cfg: Config, steps_per_epoch: int, device=None, **switches):
         if str(cfg.model.get("class_name", "EHEM")) != "EHEM":
             raise NotImplementedError(
-                f"model {cfg.model.class_name}: OctAttention is not ported yet; the port "
-                "trains EHEM only")
+                f"model {cfg.model.class_name}: OctAttention training is not ported yet "
+                "(its codec is); the port trains EHEM only")
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
         self.device = resolve_device(device)

@@ -62,6 +62,17 @@ CKPT_NAME = "epoch=0-step=1"
 
 
 @pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these tests run thousands of small torch ops,
+    which crawl when every test worker's thread pool spans all the cores
+    (the suite runs several workers on one machine)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def jax_switches():
     """scp_tpu's switches, and its metrics on scipy: its native build shares
     one <so>.tmp across test workers, and a library another test of the
@@ -307,18 +318,87 @@ def test_mullevel_encode_decode_matches_jax(tmp_path, monkeypatch, runs, session
 
 
 def test_octattn_flags_and_runs_are_refused(runs, tmp_path):
+    """What the port still refuses: OctAttention's schedule flags on an EHEM
+    run (they would be ignored), OctAttention training, and EHEM's staged
+    and full coding modes."""
+    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+    from scp_tpu_torch.train.trainer import Trainer
+
     _, tck, data, _ = runs
     for flag in ("--incremental", "--sequential"):
-        with pytest.raises(SystemExit, match="OctAttention"):
-            tencode_cli.main(["--ckpt_path", tck, "--test_files", data, flag, *PORT_FLAGS])
-    run = tmp_path / "octattn_run"
-    cfg = tconfig.load_config("smoke.yaml", CONFIGS)
-    cfg.model.class_name = "OctAttention"
-    tconfig.save_config(cfg, str(run))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CodecSession(str(run / "ckpt" / "x.pt"), str(run), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tselftest.main(["--model", "octattn", "--device", "cpu"])
+        with pytest.raises(ValueError, match="OctAttention"):
+            tencode_cli.main(["--ckpt_path", tck, "--type", "kitti", "--spher", "--test_files",
+                              os.path.join(data, "scan0.ply"), "--out_dir", str(tmp_path),
+                              flag, *PORT_FLAGS])
+    cfg = tconfig.load_config("train_kitti.yaml", CONFIGS)
+    with pytest.raises(NotImplementedError, match="OctAttention"):
+        Trainer(cfg, steps_per_epoch=1, device="cpu")
+    tiny = TEHEM(self_depths=(2, 2), cross_depths=(1,), embed_dim=64, num_heads=2,
+                 window_size=16, mlp_ratio=2.0, knn_k=4, device="cpu")
+    for mode in ("staged", "full"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            EHEMCodec(tiny, context_size=64, mode=mode)
+
+
+@pytest.fixture(scope="module")
+def octattn_run(tmp_path_factory):
+    """A tiny OctAttention port run dir (configs/train_kitti.yaml at narrow
+    widths, context 32, weights drawn from a seed) and a 200-point KITTI-
+    like cloud with its shard for the decoder's ground-truth check."""
+    from scp_tpu_torch.core.preprocess import kitti_qs, preprocess_points
+    from scp_tpu_torch.models import build_model as tbuild_model
+    from scp_tpu_torch.models.layers import flax_init_
+
+    tmp = tmp_path_factory.mktemp("octattn_cli")
+    cfg = tconfig.load_config("train_kitti.yaml", CONFIGS)
+    for k, v in dict(context_size=32, occ_embed_dim=16, level_embed_dim=4, octant_embed_dim=4,
+                     abs_pos_embed_dim=8, layer_num=2, head_num=2,
+                     hidden_dimension=64).items():
+        cfg.model[k] = v
+    run = str(tmp / "run")
+    tconfig.save_config(cfg, run)
+    model = flax_init_(tbuild_model(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    ck = os.path.join(run, "ckpt", CKPT_NAME + ".pt")
+    os.makedirs(os.path.dirname(ck))
+    torch.save({"model": model.state_dict(), "meta": {"epoch": 0, "step": 1}}, ck)
+    data = tmp / "seq00"
+    data.mkdir()
+    pts = lidar_points(np.random.default_rng(5), 200)
+    jwrite_ply(str(data / "scan.ply"), pts)
+    res = preprocess_points(read_points(str(data / "scan.ply")), system="spher", qs=kitti_qs(6))
+    shards = tmp / "shards"
+    shards.mkdir()
+    np.save(shards / "seq00scan.npy", res.context)
+    return ck, str(data / "scan.ply"), str(shards), res
+
+
+@pytest.mark.parametrize("schedule, flags", [
+    ("rans", ["--incremental"]),
+    ("incr", ["--incremental", "--octattn-coder", "full"]),
+    ("full", []),
+])
+def test_octattn_cli_roundtrip(octattn_run, tmp_path, monkeypatch, schedule, flags):
+    """encode -> decode through cli.encode / cli.decode on a tiny
+    OctAttention run, in each schedule: the header names the schedule and
+    an f32 stamp (OctAttention's default dtype), the decode is lossless
+    against the shard and needs no --incremental; a window-schedule stream
+    decoded with another window is refused."""
+    ck, ply, shards, res = octattn_run
+    monkeypatch.chdir(tmp_path)
+    bins = str(tmp_path / "bins")
+    common = ["--ckpt_path", ck, "--type", "kitti", "--device", "cpu", "--test_files", ply]
+    (stats,) = tencode_cli.main([*common, "--lidar_level", "6", "--spher", "--out_dir", bins,
+                                 *flags])
+    header, payload = tunpack(_read(stats["outputfile"]))
+    assert header.coding_mode == schedule and header.backend == "torch-cpu"
+    assert header.coding_params.startswith("dtype=float32")
+    assert stats["oct_num"] == res.context.shape[0] and stats["bits"] == len(payload) * 8
+    (dec,) = tdecode_cli.main([*common, "--preproc_path", shards, "--bin_dir", bins])
+    np.testing.assert_allclose(np.sort(dec["points"].astype(np.float64), axis=0),
+                               np.sort(res.recon_points.astype(np.float64), axis=0), atol=1e-4)
+    if schedule == "full":
+        with pytest.raises(RuntimeError, match="window=fast"):
+            tdecode_cli.main([*common, "--bin_dir", bins, "--sequential"])
 
 
 def test_sessions_refuse_orbax_dirs_and_need_the_card(runs, tmp_path):
@@ -344,6 +424,11 @@ def test_sessions_refuse_orbax_dirs_and_need_the_card(runs, tmp_path):
 def test_selftest_prints_lossless_roundtrip(capsys):
     assert tselftest.main(["--device", "cpu"]) == 0
     assert "LOSSLESS ROUNDTRIP OK" in capsys.readouterr().out
+
+
+def test_selftest_octattn_prints_lossless_roundtrip(capsys):
+    assert tselftest.main(["--model", "octattn", "--device", "cpu"]) == 0
+    assert "LOSSLESS ROUNDTRIP OK  model=octattn" in capsys.readouterr().out
 
 
 def test_bench_measure_keeps_the_best_lossless_pass():

@@ -1,11 +1,12 @@
 """The port stands alone: with JAX, flax, optax, orbax, PyYAML and scp_tpu
 shut out of the import system, every module of scp_tpu_torch (the config
-reader, the trainer, the codec CLI, the native octree builder, the metrics
-and tools among them) and chip_smoke imports, a small CPU encode/decode
-runs, a tiny EHEM takes a training step and the codec selftest passes
-(`cli.selftest --device cpu`); chip_smoke.py refuses to
-report success without a card; no source builds through
-torch.utils.cpp_extension (which needs ninja and PyTorch's headers)."""
+reader, the trainer, the codec CLI, the native octree builder and range
+coder, OctAttention's model and codec, the metrics and tools among them)
+and chip_smoke imports, a small CPU encode/decode runs, a tiny EHEM takes a
+training step and the codec selftest passes (`cli.selftest --device
+cpu`); chip_smoke.py refuses to report success without a card; no source
+builds through torch.utils.cpp_extension (which needs ninja and PyTorch's
+headers)."""
 
 import os
 import re
@@ -47,7 +48,10 @@ for m in ("scp_tpu_torch.config", "scp_tpu_torch.train.data", "scp_tpu_torch.tra
           "scp_tpu_torch.cli.codec_common", "scp_tpu_torch.cli.encode",
           "scp_tpu_torch.cli.decode", "scp_tpu_torch.cli.selftest", "scp_tpu_torch.metrics",
           "scp_tpu_torch.native.build", "scp_tpu_torch.native.octree_native",
-          "scp_tpu_torch.tools.gene_normals", "scp_tpu_torch.tools.bench"):
+          "scp_tpu_torch.tools.gene_normals", "scp_tpu_torch.tools.bench",
+          "scp_tpu_torch.models.octattention", "scp_tpu_torch.codec.octattn_rans",
+          "scp_tpu_torch.codec.octattn_codec", "scp_tpu_torch.ac", "scp_tpu_torch.ac.py_coder",
+          "scp_tpu_torch.native.ac_native", "scp_tpu_torch.tools.bench_octattn"):
     assert m in mods, m
 
 from scp_tpu_torch.codec.ehem_codec import EHEMCodec

@@ -7,6 +7,7 @@ directory all load it; the build writes nothing under HOME (scp_tpu's
 
 import dataclasses
 import os
+import shutil
 import subprocess
 import sys
 
@@ -99,6 +100,8 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
     bad = tmp_path / "src"
     bad.mkdir()
     (bad / "octree.cpp").write_text("this is not C++;\n")
+    # the library's other source (the range coder) as it is
+    shutil.copyfile(os.path.join(build.SRC_DIR, "ac.cpp"), bad / "ac.cpp")
     monkeypatch.setattr(build, "SRC_DIR", str(bad))
     with pytest.raises(build.NativeBuildError, match="g.. failed"):
         build.load_library(str(tmp_path / "out"))
