@@ -91,6 +91,38 @@ Phases, each printed as it ends (any failure exits non-zero):
          coder (ac.cpp, built with g++), lossless.  Its decoder runs one
          1024-row forward per node (365,165 at L12), so it codes the same
          sweep at lidar level WINDOW_LEVEL.  Walls by stage.
+ 10. OctAttention training on the card (configs/train_kitti.yaml at full
+     width: 600-d tokens, 3 layers, 4 heads, batch 16 x context 1024,
+     bf16 with f32 masters, Adam + StepLR, warm from the v2 checkpoint),
+     on shards that the port's data CLIs write under chiprun_out/ and
+     that the phase removes when it ends.  Plain PyTorch, as in phase 9:
+     kernels A-E launch 0 times here, and the phase checks it.  10b runs
+     first, since 10a and 10c read its shards:
+     10b. three synthetic KITTI sweeps (120,000 points, seeds 1000-1002)
+          as .bin files in the sequences/<seq>/velodyne/ layout;
+          `tools.multi_preproc 2` on `tools.preprocess --type kitti
+          --spher`: three shards with the expected names (the first equal
+          to preprocess_points's context), and a second run skips all
+          three and rewrites none;
+     10a. one fixed (16, 1024) batch of those shards at dropout 0: the
+          card's f32 loss and every gradient leaf against the CPU's f32
+          on the same model (the batch cut to 4 x 1024 on both sides,
+          to keep the CPU's share short; loss within 1e-5 relative, each
+          leaf within 1e-4 x max(1, its largest magnitude)), then the
+          card's bf16 step against its f32 step on the whole batch (loss
+          within 1e-2 relative, every parameter a gradient, per-tensor
+          cosine >= 0.99; the key projections' biases, whose gradient is
+          0 in exact arithmetic, at rounding level instead);
+     10c. `cli.train.main --config-name train_kitti.yaml` on the shards,
+          one epoch, dropout 0.1, validation batches at their default:
+          every logged loss finite, metrics.jsonl and the final .pt
+          written; then 20 timed steps at (16, 1024) at dropout 0.1 and
+          at 0 (median s/step, peak memory, forward / backward / update
+          shares), one profiled step (kernel ms by name, idle share), and
+          10 steps on one repeated batch: the last loss below the first;
+     10d. the trained run dir through `cli.encode --incremental` and
+          `cli.decode` with its ground-truth check, on the bench sweep at
+          lidar level 12 (phase 9's): lossless; bpp printed, not gated.
 
 Phase 2 also holds A, B, C and E in f32 against their plain versions
 (atol = rtol = 1e-4), and times the attention core that B, C and E share
@@ -1129,6 +1161,270 @@ def octattn_phase(device="cuda", n_points=N_POINTS, level=OCT_LEVEL,
     return out
 
 
+# ---- phase 10: OctAttention training --------------------------------------------
+
+OCT_TRAIN_SEEDS = (1000, 1001, 1002)  # the synthetic KITTI sweeps 10b writes, disjoint from seed 0
+OCT_CPU_BATCH = 4  # 10a: the CPU's side of the card-vs-CPU gradient check, 4 x 1024
+OCT_TIMED_STEPS = 20
+# 10a, card vs CPU in f32 (tests/test_torch_train_step.py's limits): summation order only
+OCT_LOSS_RTOL = 1e-5
+OCT_GRAD_TOL = 1e-4  # x max(1, the leaf's largest magnitude)
+# The key projection's bias adds q.b to every score of a query's row, which
+# softmax cancels: its gradient is 0 in exact arithmetic, and the f32 and
+# bf16 steps compute rounding noise there, whose cosine means nothing.  10a
+# holds those tensors to rounding level in f32 instead of to GRAD_COSINE.
+GRADIENT_FREE = "attn.key.bias"
+GRADIENT_FREE_NORM = 1e-5  # x the largest f32 gradient norm of any tensor
+
+
+def _octattn_grads(model, batch, device):
+    from scp_tpu_torch.train.trainer import cross_entropy_bits
+
+    data, pos, label = (torch.as_tensor(batch[k]).to(device) for k in ("data", "pos", "label"))
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = cross_entropy_bits(model(data, pos), label)
+    loss.backward()
+    sync(device)
+    return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
+
+
+def octattn_grad_checks(cfg, fixed, device) -> dict:
+    """10a: one fixed batch at dropout 0, the warm-started model of `cfg`:
+    the card's f32 loss and gradients against the CPU's f32 (the batch cut
+    to OCT_CPU_BATCH rows), then the card's bf16 step against its f32 step
+    on the whole batch."""
+    from scp_tpu_torch.models import build_model
+    from scp_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    t32 = Trainer(cfg, 1, device=device)
+    t32.init_state()
+    m32 = t32.model
+    cpu = build_model(cfg, torch.float32, device="cpu")
+    cpu.load_state_dict(m32.state_dict())
+    cut = {k: v[:OCT_CPU_BATCH] for k, v in fixed.items()}
+    t0 = time.time()
+    l_card, g_card = _octattn_grads(m32, cut, device)
+    l_cpu, g_cpu = _octattn_grads(cpu, cut, "cpu")
+    worst, worst_name = 0.0, None
+    for n, want in g_cpu.items():
+        got = g_card[n].cpu()
+        bound = OCT_GRAD_TOL * max(1.0, float(want.abs().max()))
+        excess = float(((got - want).abs() - OCT_GRAD_TOL * want.abs()).max()) / bound
+        if excess > worst or worst_name is None:
+            worst, worst_name = excess, n
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    say(f"  10a card vs CPU, f32, batch {tuple(cut['data'].shape[:2])}: loss {l_card:.7f} / "
+        f"{l_cpu:.7f} (rel diff {rel:.3g}, limit {OCT_LOSS_RTOL}); worst gradient leaf "
+        f"{worst_name} at {worst:.3g} of its limit ({OCT_GRAD_TOL} x max(1, largest)) "
+        f"({time.time() - t0:.2f} s)")
+    if not rel <= OCT_LOSS_RTOL or worst > 1.0:
+        raise AssertionError(f"10a: card vs CPU loss rel {rel}, gradient {worst_name} at {worst}")
+    out.update(card_vs_cpu_loss_rel=rel, card_vs_cpu_worst_leaf=worst_name,
+               card_vs_cpu_worst_share_of_limit=worst, cpu_batch=OCT_CPU_BATCH)
+    del cpu, g_cpu, g_card
+
+    t0 = time.time()
+    m16 = build_model(cfg, torch.bfloat16, device=device)
+    m16.load_state_dict(m32.state_dict())
+    l32, g32 = _octattn_grads(m32, fixed, device)
+    l16, g16 = _octattn_grads(m16, fixed, device)
+    missing = [n for n, g in g16.items() if g is None]
+    if missing:
+        raise AssertionError(f"10a: parameters without a gradient: {missing}")
+    largest = max(float(g.double().norm()) for g in g32.values())
+    cos, free = {}, {}
+    for n, g in g16.items():
+        a, b = g.double().flatten(), g32[n].double().flatten()
+        if not math.isfinite(float(a.norm())):
+            raise AssertionError(f"10a: non-finite bf16 gradient of {n}")
+        if n.endswith(GRADIENT_FREE):
+            free[n] = float(b.norm()) / largest
+            continue
+        cos[n] = float(a @ b) / max(float(a.norm()) * float(b.norm()), 1e-300)
+    worst = min(cos, key=cos.get)
+    rel = abs(l16 - l32) / abs(l32)
+    say(f"  10a bf16 vs f32 on the card, batch {tuple(fixed['data'].shape[:2])}: loss "
+        f"{l16:.6f} / {l32:.6f} (rel diff {rel:.3g}, limit {LOSS_RTOL}); {len(g16)} parameters, "
+        f"all with gradients; lowest cosine {cos[worst]:.6f} ({worst}); the key biases' f32 "
+        f"gradient norms / the largest: {max(free.values()):.3g} (limit {GRADIENT_FREE_NORM}) "
+        f"({time.time() - t0:.2f} s)")
+    if not rel <= LOSS_RTOL:
+        raise AssertionError(f"10a: bf16 loss {l16} vs f32 {l32}")
+    if cos[worst] < GRAD_COSINE:
+        raise AssertionError(f"10a: gradient cosines under {GRAD_COSINE}: "
+                             f"{sorted((c, n) for n, c in cos.items() if c < GRAD_COSINE)[:8]}")
+    if len(free) != m32.num_layers or max(free.values()) > GRADIENT_FREE_NORM:
+        raise AssertionError(f"10a: the key biases' gradients are not at rounding level: {free}")
+    out.update(bf16_vs_f32_loss_rel=rel, min_cosine=cos[worst], min_cosine_param=worst,
+               key_bias_grad_norm_share=max(free.values()))
+    return out
+
+
+def octattn_training_phase() -> dict:
+    """Phase 10 (see the module docstring); returns its numbers."""
+    import glob
+    import shutil
+
+    from scp_tpu_torch.cli import decode as decode_cli
+    from scp_tpu_torch.cli import encode as encode_cli
+    from scp_tpu_torch.cli import train as train_cli
+    from scp_tpu_torch.cli.codec_common import shard_name
+    from scp_tpu_torch.config import load_config
+    from scp_tpu_torch.core.pointcloud import read_points
+    from scp_tpu_torch.core.preprocess import kitti_qs, preprocess_points
+    from scp_tpu_torch.tools.profile_train import kernel_profile, timed_steps
+    from scp_tpu_torch.train import checkpoints
+    from scp_tpu_torch.train.data import ShardDataset
+
+    out = {}
+    dev = torch.device("cuda")
+    work = os.path.join(HERE, "chiprun_out", "phase10")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        # ---- 10b: the data CLIs (run first: 10a and 10c read their shards)
+        t0 = time.time()
+        velodyne = os.path.join(work, "kitti", "sequences", "00", "velodyne")
+        os.makedirs(velodyne)
+        for i, seed in enumerate(OCT_TRAIN_SEEDS):
+            pts = synth_kitti(np.random.default_rng(seed), N_POINTS).astype(np.float32)
+            np.hstack([pts, np.zeros((N_POINTS, 1), np.float32)]).tofile(
+                os.path.join(velodyne, f"{i:06d}.bin"))
+        shards = os.path.join(work, "shards")
+        cmd = [sys.executable, "-m", "scp_tpu_torch.tools.multi_preproc", "2",
+               sys.executable, "-m", "scp_tpu_torch.tools.preprocess", "--type", "kitti",
+               "--spher", "--ori_dir", os.path.join(velodyne, "*.bin"), "--out_dir", shards]
+        env = {**os.environ, "PYTHONPATH": HERE}
+
+        def run_clis():
+            t = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
+                                  timeout=600)
+            if proc.returncode:
+                raise AssertionError(f"10b: multi_preproc exit {proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            return proc.stdout, time.perf_counter() - t
+
+        _, t_first = run_clis()
+        files = sorted(glob.glob(os.path.join(shards, "*.npy")))
+        stamps = {f: os.stat(f).st_mtime_ns for f in files}
+        second, t_second = run_clis()
+        skipped = second.count("Already exists")
+        names = sorted(os.path.basename(f).rsplit("_", 1)[0] for f in files)
+        if names != [f"00{i:06d}" for i in range(len(OCT_TRAIN_SEEDS))]:
+            raise AssertionError(f"10b: shards {files}")
+        if skipped != len(files) or {f: os.stat(f).st_mtime_ns for f in files} != stamps:
+            raise AssertionError(f"10b: the second run skipped {skipped} of {len(files)}")
+        first = preprocess_points(read_points(os.path.join(velodyne, "000000.bin")),
+                                  system="spher", qs=400 / (2**16 - 1)).context
+        if not np.array_equal(np.load(files[0]), first):
+            raise AssertionError("10b: the first shard differs from preprocess_points")
+        rows = [int(f.rsplit("_", 1)[1][:-4]) for f in files]
+        say(f"phase 10b data CLIs: multi_preproc 2 x preprocess --type kitti --spher on "
+            f"{len(files)} sweeps of {N_POINTS} points: {t_first:.2f} s, shards "
+            f"{[os.path.basename(f) for f in files]}; the second run skipped all "
+            f"{skipped} in {t_second:.2f} s; the first shard equals preprocess_points's "
+            f"({time.time() - t0:.2f} s)")
+        out["10b"] = dict(shards=[os.path.basename(f) for f in files], rows=rows,
+                          first_run_s=t_first, second_run_s=t_second, skipped=skipped)
+
+        root = os.path.join(shards, "*.npy")
+        base = [f"data.root={root}", f"train.load_pretrain={OCT_CKPT}"]
+        configs = os.path.join(HERE, "configs")
+        cfg = load_config("train_kitti.yaml", configs, [*base, "bf16=False"])
+        csz, batch = int(cfg.data.context_size), int(cfg.data.batch_size)
+        fixed = next(ShardDataset(root, csz, batch, mode="octattn").batches())
+
+        # ---- 10a: gradients at dropout 0
+        t0 = time.time()
+        out["10a"] = octattn_grad_checks(cfg, fixed, dev)
+        say(f"phase 10a gradients: {time.time() - t0:.2f} s")
+
+        # ---- 10c: cli.train.main on the shards, one epoch, dropout 0.1
+        t0 = time.time()
+        run = os.path.join(work, "run")
+        trainer = train_cli.main([
+            "--config-name", "train_kitti.yaml", "--config-dir", configs, "--run-dir", run,
+            *base, "train.epoch=1", "train.dropout=0.1"])
+        sync(dev)
+        t_cli = time.time() - t0
+        with open(os.path.join(run, "metrics.jsonl")) as fh:
+            recs = [json.loads(line) for line in fh]
+        losses = [r["train_loss"] for r in recs if "train_loss" in r]
+        final = checkpoints.latest_checkpoint(run)
+        if not losses or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"10c: logged losses {losses}")
+        with open(os.path.join(run, "ckpt", "latest.txt")) as fh:
+            if os.path.join(run, "ckpt", fh.read().strip()) != final or not os.path.exists(final):
+                raise AssertionError(f"10c: no final checkpoint in {run}")
+        say(f"phase 10c cli.train: {trainer.steps_per_epoch} steps of "
+            f"{tuple(fixed['data'].shape[:2])} "
+            f"in {t_cli:.2f} s (setup, validation batches and checkpoints included); logged "
+            f"losses {[round(x, 4) for x in losses]}; {os.path.basename(final)} written")
+        out["10c"] = dict(steps=trainer.step, cli_wall_s=t_cli, logged_losses=losses,
+                          checkpoint=os.path.basename(final))
+        p_run = trainer.model.dropout
+        for p in (p_run, 0.0):  # the CLI's run, then the configs' default
+            trainer.model.dropout = p
+            timed = timed_steps(trainer, fixed, OCT_TIMED_STEPS)
+            say(f"  10c {OCT_TIMED_STEPS} steps at dropout {p}: median "
+                f"{timed['median_s_per_step']:.4f} s/step, peak memory "
+                f"{timed['peak_memory_gb']:.2f} GB, shares "
+                + ", ".join(f"{k} {v:.3f}" for k, v in timed["shares"].items()))
+            out["10c"][f"timed_dropout_{p}"] = {k: v for k, v in timed.items() if k != "losses"}
+        trainer.model.dropout = p_run
+        prof = kernel_profile(lambda: trainer.train_step(fixed),
+                              out["10c"][f"timed_dropout_{p_run}"]["median_s_per_step"])
+        say(f"  10c one profiled step (dropout {p_run}): {prof['device_kernel_ms']:.1f} ms of "
+            f"kernels, idle share {prof['device_idle_share']:.3f}; largest: "
+            + "; ".join(f"{t['ms']:.2f} ms x{t['count']} {t['name'][:60]}"
+                        for t in prof["top_kernels"][:8]))
+        out["10c"]["profile"] = prof
+        repeated = [float(trainer.train_step(fixed)) for _ in range(10)]
+        say(f"  10c 10 steps on one batch: losses {[round(x, 4) for x in repeated]}")
+        if not repeated[-1] < repeated[0]:
+            raise AssertionError(f"10c: the loss did not fall: {repeated}")
+        out["10c"]["repeated_losses"] = repeated
+        del trainer
+        torch.cuda.empty_cache()
+
+        # ---- 10d: the trained run dir through the codec CLI
+        t0 = time.time()
+        seq = os.path.join(work, "bench", "sequences", "00")
+        os.makedirs(seq)
+        cloud = os.path.join(seq, "000000.bin")
+        pts = synth_kitti(np.random.default_rng(0), N_POINTS).astype(np.float32)
+        np.hstack([pts, np.zeros((N_POINTS, 1), np.float32)]).tofile(cloud)
+        ref = preprocess_points(read_points(cloud), system="spher", qs=kitti_qs(OCT_LEVEL))
+        ref_dir = os.path.join(work, "bench_shards")
+        os.makedirs(ref_dir)
+        np.save(os.path.join(ref_dir, shard_name(cloud, "kitti")), ref.context)
+        flags = ["--ckpt_path", final, "--type", "kitti", "--test_files", cloud]
+        bins = os.path.join(work, "bins")
+        t = time.perf_counter()
+        (e,) = encode_cli.main([*flags, "--lidar_level", str(OCT_LEVEL), "--spher", "--out_dir",
+                                bins, "--incremental"])
+        enc_wall = time.perf_counter() - t
+        t = time.perf_counter()
+        (d,) = decode_cli.main([*flags, "--preproc_path", ref_dir, "--bin_dir", bins])
+        dec_wall = time.perf_counter() - t
+        got = np.sort(d["points"].astype(np.float64), axis=0)
+        want = np.sort(ref.recon_points.astype(np.float64), axis=0)
+        if got.shape != want.shape or not np.allclose(got, want, rtol=0, atol=1e-4):
+            raise AssertionError("10d: decoded points differ from the cloud")
+        say(f"phase 10d the trained run through cli.encode --incremental / cli.decode "
+            f"(L{OCT_LEVEL}, "
+            f"{e['oct_num']} nodes): lossless; bpp {e['bpp']:.4f} (one epoch on L16 shards: "
+            f"no rate claim), encode wall {enc_wall:.3f} s, decode wall {dec_wall:.3f} s "
+            f"({time.time() - t0:.2f} s)")
+        out["10d"] = dict(level=OCT_LEVEL, nodes=e["oct_num"], bpp=e["bpp"], encode_wall_s=enc_wall,
+                          decode_wall_s=dec_wall)
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1295,6 +1591,19 @@ def main() -> int:
     for k in "ABCDE":
         rows[k]["octattn_launches"] = 0
     say(json.dumps({"octattn": p9}))
+
+    # ---- 10. OctAttention training (no kernel of A-E on its path either)
+    t0 = time.time()
+    reset_counts(counted.values())
+    p10 = octattn_training_phase()
+    launches10 = {k: fn.launches for k, fn in counted.items()}
+    if any(launches10.values()):
+        raise AssertionError(f"phase 10 launched kernels of A-E: {launches10}")
+    say(f"phase 10 OctAttention training: {time.time() - t0:.2f} s; kernel launches A/B/C/D/E "
+        f"{[launches10[k] for k in 'ABCDE']}")
+    for k in "ABCDE":
+        rows[k]["octattn_train_launches"] = 0
+    say(json.dumps({"octattn_training": p10}))
     say(f"total wall {time.time() - t_start:.1f} s")
 
     for k, prefixes in (("A", ("mlp_sm90<",)), ("B", ("gemm_sm90<",)), ("C", ("gemm_sm90<",)),

@@ -12,33 +12,39 @@ subpackages mirror scp_tpu's:
             (CUDA C++ under ops/csrc, built with nvcc at first use), and
             the autograd Functions that give the kernels scp_tpu's
             custom_vjp backward.
-  train   — the single-device EHEM trainer: data pipeline, loss, Adam +
-            StepLR, checkpoints (and scp_tpu's npz format).
+  train   — the single-device trainer of EHEM and OctAttention: data
+            pipeline, loss, Adam + StepLR, OctAttention's dropout masks,
+            checkpoints (and scp_tpu's npz format).
   config  — the YAML config system, read without PyYAML.
   metrics — D1/D2 PSNR and Chamfer (scipy's KD-tree).
   native  — the C++ octree builder, built with g++ at first use and
             loaded with ctypes.
   cli     — the codec CLIs (encode, decode, selftest; EHEM in rans mode)
             and the training CLI.
-  tools   — the port bench (single-scan throughput on the card), the
-            bench-checkpoint recipe, the normals ply, probes.
+  tools   — the shard-preprocessing CLIs (preprocess, multi_preproc,
+            gene_normals), the port bench (single-scan throughput on the
+            card), the bench-checkpoint recipe, profiles, probes.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with
 no card and no such argument they raise instead of falling back.
+
+Importing the package does not import torch, so the host-only tools
+(tools.preprocess, spawned once per part by tools.multi_preproc) start
+without it.
 """
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":  # noqa: F821
     """The device an entry point runs on: `cuda` unless told otherwise.
 
     Raises when CUDA is asked for (explicitly or by default) and there is
     no card — the port never falls back to the CPU on its own."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -1,12 +1,15 @@
 """Training CLI of the port (the twin of scp_tpu/cli/train.py).
 
-    python -m scp_tpu_torch.cli.train --config-name train_kitti_ehem.yaml \
-        data.batch_size=16 'data.root=data/kitti/spher/*.npy'
+    python -m scp_tpu_torch.cli.train --config-name train_kitti.yaml \
+        'data.root=data/kitti/spher/*.npy'
 
-Hydra-style dotted overrides are positional arguments.  One device: the
-override `device=cpu` runs the plain PyTorch path; the default is the
-card.
-The switches scp_tpu reads from the environment are flags here.
+Hydra-style dotted overrides are positional arguments.  The config names
+the model: OctAttention (train_obj.yaml, the default, and
+train_kitti.yaml) or EHEM (train_*_ehem.yaml).  One device: the override
+`device=cpu` runs the plain PyTorch path; the default is the card.
+The EHEM switches scp_tpu reads from the environment are flags here; on
+an OctAttention config each of them is build_model's ValueError, which
+names the switch the flag sets.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import os
 
 
 def main(argv=None):
+    """Train the config's model; returns the Trainer after its last step."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--config-name", default="train_obj.yaml")
     ap.add_argument("--config-dir", default="configs")
@@ -27,7 +31,7 @@ def main(argv=None):
                     help="kernel D for graphs of N >= 2048 rows (SCP_PALLAS_KNN)")
     ap.add_argument("--pallas-attn", action="store_true",
                     help="kernel E in the padded Swin stages (SCP_PALLAS_ATTN)")
-    ap.add_argument("--explicit-edgeconv", action="store_true",
+    ap.add_argument("--explicit-edgeconv", dest="fused_edgeconv", action="store_false",
                     help="the explicit train EdgeConv (SCP_FUSED_EDGECONV=0)")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_intermixed_args(argv)
@@ -37,15 +41,16 @@ def main(argv=None):
     from scp_tpu_torch.train.trainer import Trainer
 
     cfg = load_config(args.config_name, args.config_dir, args.overrides)
+    # only the switches the user set: the model's defaults are the others
+    defaults = dict(static_knn=False, pallas_knn=False, pallas_attn=False, fused_edgeconv=True)
+    switches = {k: getattr(args, k) for k, v in defaults.items() if getattr(args, k) != v}
     print(cfg.to_plain())
     seed = int(cfg.get("seed", cfg.train.get("seed", 42)))
     cfg.seed = seed
 
     dataset = build_dataset(cfg)
     trainer = Trainer(cfg, steps_per_epoch=dataset.steps_per_epoch(), device=cfg.get("device"),
-                      static_knn=args.static_knn, pallas_knn=args.pallas_knn,
-                      pallas_attn=args.pallas_attn,
-                      fused_edgeconv=not args.explicit_edgeconv)
+                      **switches)
 
     # validation batches (bits/node curve in metrics.jsonl): held out when
     # cfg.data.val_root points at disjoint shards; without it, a
@@ -73,6 +78,7 @@ def main(argv=None):
     print("saving in", run_dir)
     print("device:", trainer.device)
     trainer.fit(dataset, run_dir, val_batches=val_batches)
+    return trainer
 
 
 if __name__ == "__main__":

@@ -92,6 +92,19 @@ def preprocess_points(
     )
 
 
+def save_whole(out_file: str, arr: np.ndarray) -> None:
+    """np.save(out_file, arr) through a temporary file and a rename, so an
+    interrupted write leaves no `<out_file>.npy` for a resumed run to skip."""
+    tmp = f"{out_file}.npy.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as fh:
+            np.save(fh, arr)
+        os.replace(tmp, out_file + ".npy")
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def preprocess_file(
     inp_path: str,
     out_dir: str,
@@ -109,10 +122,10 @@ def preprocess_file(
         mp = kwargs.get("morton_path")
         suffix = "".join(f"_{m}" for m in mp) if mp else ""
         out_file = os.path.join(out_dir, out_name + suffix)
-        np.save(out_file + "_loc", res.ref_points)
+        save_whole(out_file + "_loc", res.ref_points)
     else:
         out_file = os.path.join(out_dir, f"{out_name}_{res.context.shape[0]}")
-    np.save(out_file, res.context)
+    save_whole(out_file, res.context)
     return out_file, res
 
 

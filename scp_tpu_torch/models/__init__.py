@@ -1,5 +1,5 @@
-"""Torch entropy models of the port: EHEM (codec inference and training)
-and OctAttention (codec inference), built from a run config by
+"""Torch entropy models of the port: EHEM and OctAttention (codec
+inference and training), built from a run config by
 `build_model` (scp_tpu's registry, scp_tpu/models/__init__.py)."""
 
 from __future__ import annotations
@@ -25,5 +25,6 @@ def build_model(cfg, dtype=None, device=None, **switches):
 
     cls = get_model_class(str(cfg.model.class_name))
     if switches and cls.__name__ != "EHEM":
-        raise ValueError(f"{cls.__name__} takes no switches, got {sorted(switches)}")
+        raise ValueError(f"{cls.__name__} takes none of EHEM's switches, got "
+                         + ", ".join(f"{k}={v}" for k, v in sorted(switches.items())))
     return cls.from_config(cfg, dtype or torch.float32, device=device, **switches)

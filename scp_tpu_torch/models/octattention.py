@@ -23,6 +23,18 @@ step attends to the `length` cached rows only: the rows at or past
 `length` carry an exact zero weight in scp_tpu's masked softmax, so the
 result is the same function (the sum runs over fewer zeros).
 
+Training drops at scp_tpu's sites (flax's nn.Dropout, inverted: a kept
+element is scaled by 1 / (1 - p)): both streams' attention weights, both
+attention outputs before the residual, the FFN hidden layer and the FFN
+output.  The unknown stream's weights are dropped before the self-slot
+weight is taken from their diagonal, as scp_tpu orders it.  The masks
+come from the `torch.Generator` the caller passes to `forward`, never
+from the global RNG; the trainer seeds one per step from (seed + 1, step),
+as scp_tpu folds the step into PRNGKey(seed + 1), so a resumed run draws
+the masks an uninterrupted run would have drawn.  The bits cannot match
+JAX's RNG.  Eval mode, p = 0, `decode_step` and `decode_insert` never
+drop, so serving computes what it computed without dropout.
+
 The attention is plain PyTorch: scp_tpu computes it with einsums and
 softmax, not with a Pallas kernel, so this module launches no kernel of
 its own.
@@ -30,6 +42,7 @@ its own.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -38,6 +51,18 @@ from torch import nn
 
 from scp_tpu_torch import resolve_device
 from scp_tpu_torch.models.layers import Dense, LayerNorm, sinusoidal_position_table
+
+
+def _identity(x):
+    return x
+
+
+def dropout(x, p: float, generator: torch.Generator):
+    """flax's nn.Dropout(p) in training: each element kept with
+    probability 1 - p and divided by 1 - p, the rest 0; the mask drawn
+    from `generator` (on x's device)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class _QKV(nn.Module):
@@ -74,12 +99,13 @@ class DualStreamLayer(nn.Module):
         b, h, n, hd = x.shape
         return x.transpose(1, 2).reshape(b, n, h * hd)
 
-    def _ffn(self, x):
-        return self.ffn2(F.relu(self.ffn1(x)))
+    def _ffn(self, x, drop=_identity):
+        return self.ffn2(drop(F.relu(self.ffn1(x))))
 
     # -- full-window forward ---------------------------------------------------
 
-    def forward(self, embed, embed_unknown, causal_mask):
+    def forward(self, embed, embed_unknown, causal_mask, drop=_identity):
+        """`drop` is the dropout of every site (the identity outside training)."""
         scale = math.sqrt(self.head_dim)
         k = self._heads(self.attn.key(embed))
         k_unk = self._heads(self.attn.key(embed_unknown))
@@ -88,22 +114,23 @@ class DualStreamLayer(nn.Module):
         v_unk = self._heads(self.attn.value(embed_unknown))
 
         scores = torch.matmul(q_unk, k.transpose(-1, -2)).float() / scale
-        attn = torch.softmax(scores + causal_mask, dim=-1)
+        attn = drop(torch.softmax(scores + causal_mask, dim=-1))
         out = torch.matmul(attn.to(self.dtype), v)
 
         diag = torch.matmul(q_unk[..., None, :], k_unk[..., None])[..., 0, 0].float() / scale
         n = scores.shape[-1]
         eye = torch.eye(n, dtype=torch.float32, device=scores.device)
         scores_unk = scores * (1.0 - eye) + diag[..., None] * eye
-        attn_unk = torch.softmax(scores_unk + causal_mask, dim=-1).to(self.dtype)
+        attn_unk = drop(torch.softmax(scores_unk + causal_mask, dim=-1)).to(self.dtype)
         diag_w = torch.diagonal(attn_unk, dim1=-2, dim2=-1)  # (b, h, n)
         attn_off = attn_unk * (1.0 - eye).to(self.dtype)
         out_unk = torch.matmul(attn_off, v) + diag_w[..., None] * v_unk
 
-        embed = self.norm1(embed + self._merge(out))
-        embed_unknown = self.norm1(embed_unknown + self._merge(out_unk))
-        embed = self.norm2(embed + self._ffn(embed)).to(self.dtype)
-        embed_unknown = self.norm2(embed_unknown + self._ffn(embed_unknown)).to(self.dtype)
+        embed = self.norm1(embed + drop(self._merge(out)))
+        embed_unknown = self.norm1(embed_unknown + drop(self._merge(out_unk)))
+        embed = self.norm2(embed + drop(self._ffn(embed, drop))).to(self.dtype)
+        embed_unknown = self.norm2(
+            embed_unknown + drop(self._ffn(embed_unknown, drop))).to(self.dtype)
         return embed, embed_unknown
 
     # -- one position over the lanes -------------------------------------------
@@ -162,6 +189,7 @@ class OctAttention(nn.Module):
         context_size: int = 1024,
         ancestors: int = 4,
         pos_embed: bool = True,
+        dropout: float = 0.0,
         dtype: torch.dtype = torch.float32,
         device=None,
     ):
@@ -175,6 +203,7 @@ class OctAttention(nn.Module):
         self.ancestors = ancestors
         self.pos_embed = pos_embed
         self.abs_pos_embed_dim = abs_pos_embed_dim
+        self.dropout = float(dropout)
         self.dtype = dtype
         self.embed_dim = ancestors * (
             occ_embed_dim + level_embed_dim + octant_embed_dim + abs_pos_embed_dim)
@@ -210,6 +239,7 @@ class OctAttention(nn.Module):
             context_size=m["context_size"],
             ancestors=m["level_k"],
             pos_embed=bool(m["pos_embed"]),
+            dropout=float(cfg["train"].get("dropout", 0.0)),
             dtype=dtype,
             device=device,
         )
@@ -248,7 +278,18 @@ class OctAttention(nn.Module):
 
     # -- full forward ----------------------------------------------------------
 
-    def forward(self, data, pos):
+    def _dropper(self, generator):
+        if not (self.training and self.dropout > 0.0):
+            return _identity
+        if generator is None:
+            raise ValueError(f"OctAttention in train mode drops with p = {self.dropout}: pass "
+                             "forward a torch.Generator on the model's device")
+        return functools.partial(dropout, p=self.dropout, generator=generator)
+
+    def forward(self, data, pos, generator: torch.Generator | None = None):
+        """Logits (B, N, 255) f32.  In train mode with dropout > 0 the
+        masks are drawn from `generator`."""
+        drop = self._dropper(generator)
         n = data.shape[1]
         embed = self._tokens(data, pos, unknown=False)
         embed_unknown = self._tokens(data, pos, unknown=True)
@@ -260,7 +301,7 @@ class OctAttention(nn.Module):
             torch.full((n, n), float("-inf"), dtype=torch.float32, device=embed.device),
             diagonal=1)
         for layer in self.layers:
-            embed, embed_unknown = layer(embed, embed_unknown, causal_mask)
+            embed, embed_unknown = layer(embed, embed_unknown, causal_mask, drop)
         return self.decoder1(F.relu(self.decoder0(embed_unknown)))
 
     # -- incremental decode ----------------------------------------------------

@@ -1,20 +1,33 @@
 """Where the time of one full-width training step goes, on the card.
 
-    python -m scp_tpu_torch.tools.profile_train [--steps 10] \
-        [--out chiprun_out/profile_train.json]
+    python -m scp_tpu_torch.tools.profile_train [--config-name NAME [override ...]] \
+        [--steps 10] [--out chiprun_out/profile_train.json]
 
-Run from the root of the repository.  The recipe of chip_smoke.py phase 7
-(configs/train_kitti_ehem.yaml, batch 8 x context 8192, bf16, Adam +
-StepLR, warm from checkpoints/ehem_synth_f16_sknn.npz, static KNN on) on
-one fixed (8, 8192) batch of the port's synthetic shards (2 clouds of
-120,000 points, seeds 1000-1001, written under chiprun_out/ and removed at
-the end), with remat off and then on: the median wall of `--steps` timed
-steps, the peak memory, the forward / backward / update split, one step
-under torch.profiler with each kernel's forward and plain backward in
-named ranges (their device time summed over the step), and the device
-kernel time with its idle share against the timed wall.  Prints a summary
-and writes it as JSON to --out.  chip_smoke.py phase 7 uses
-`profiled_step` and `reset_counts` from here.
+Run from the root of the repository.  It profiles one fixed batch drawn
+from the port's synthetic shards (2 clouds of 120,000 points at lidar
+level 16, seeds 1000-1001, written under chiprun_out/ and removed at the
+end):
+
+  * with no --config-name: the EHEM recipe of chip_smoke.py phase 7
+    (batch 8 x context 8192, bf16, Adam + StepLR, warm from
+    checkpoints/ehem_synth_f16_sknn.npz, static KNN on), with remat off
+    and then on;
+  * with --config-name: the model, batch and context that config names
+    (train_kitti.yaml and train_obj.yaml: OctAttention at 16 x 1024),
+    with its dotted overrides (`train.dropout=0.1`) applied, as
+    cli.train builds it with no flags.  `data.root` defaults to the
+    synthetic shards; the model warm-starts only from the config's own
+    `train.load_pretrain`
+    (`train.load_pretrain=checkpoints/octattn_synth_l12_v2.npz`).
+
+Each run reports the median wall of `--steps` timed steps, the peak
+memory, the forward / backward / update split, one step under
+torch.profiler with each kernel's forward and plain backward in named
+ranges (their device time summed over the step), and the device kernel
+time by name with its idle share against the timed wall.  Prints a
+summary and writes it as JSON to --out.  chip_smoke.py phases 7 and 10 use
+`profiled_step`, `timed_steps`, `kernel_profile` and `reset_counts` from
+here.
 """
 
 from __future__ import annotations
@@ -133,29 +146,33 @@ def profiled_step(step):
     return out
 
 
-def measure(cfg, fixed, steps: int, remat: bool, counted):
-    from torch.profiler import ProfilerActivity, profile
-
-    from scp_tpu_torch.train.trainer import Trainer
-
-    cfg.remat = remat
-    trainer = Trainer(cfg, steps_per_epoch=25, device="cuda", static_knn=True)
-    trainer.init_state()
+def timed_steps(trainer, batch, steps: int) -> dict:
+    """`steps` train_steps on `batch` after two warm ones: the median and
+    every wall (host clock ending in a sync), the peak memory and the
+    forward / backward / update shares."""
     for _ in range(2):  # warm: allocator, kernel loads
-        trainer.train_step(fixed)
+        trainer.train_step(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    walls, split = [], {}
+    walls, split, losses = [], {}, []
     for _ in range(steps):
         t = time.perf_counter()
-        trainer.train_step(fixed, timings=split)
+        losses.append(float(trainer.train_step(batch, timings=split)))
         walls.append(time.perf_counter() - t)
-    peak = torch.cuda.max_memory_allocated()
-    reset_counts(counted.values())
-    ranges = profiled_step(lambda: trainer.train_step(fixed))
-    launches = {k: fn.launches for k, fn in counted.items()}
+    total = sum(split.values())
+    return {"steps": steps, "median_s_per_step": float(np.median(walls)), "walls_s": walls,
+            "losses": losses, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "shares": {k: v / total for k, v in split.items()}}
+
+
+def kernel_profile(step, wall_s: float, top: int = 20) -> dict:
+    """One call of `step` under torch.profiler: the device kernel time
+    summed and by name (the `top` largest), and the idle share against a
+    step's wall `wall_s`."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(fixed)
+        step()
         torch.cuda.synchronize()
 
     def dev(e):
@@ -165,26 +182,50 @@ def measure(cfg, fixed, steps: int, remat: bool, counted):
                       if str(getattr(e, "device_type", "")).endswith("CUDA") and dev(e) > 0),
                      key=lambda r: -r[1])
     device_ms = sum(k[1] for k in kernels)
-    median = float(np.median(walls))
-    total = sum(split.values())
+    return {"device_kernel_ms": device_ms,
+            "device_idle_share": max(0.0, 1.0 - device_ms / (1e3 * wall_s)),
+            "top_kernels": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in kernels[:top]]}
+
+
+def measure(cfg, fixed, steps: int, counted, remat=None, **switches):
+    from scp_tpu_torch.train.trainer import Trainer
+
+    if remat is not None:
+        cfg.remat = remat
+    trainer = Trainer(cfg, steps_per_epoch=25, device="cuda", **switches)
+    trainer.init_state()
+    timed = timed_steps(trainer, fixed, steps)
+    reset_counts(counted.values())
+    ranges = profiled_step(lambda: trainer.train_step(fixed))
+    launches = {k: fn.launches for k, fn in counted.items()}
+    prof = kernel_profile(lambda: trainer.train_step(fixed), timed["median_s_per_step"])
     del trainer
     torch.cuda.empty_cache()
-    return {
-        "remat": remat, "steps": steps, "median_s_per_step": median,
-        "walls_s": walls, "peak_memory_gb": peak / 1e9,
-        "shares": {k: v / total for k, v in split.items()},
-        "kernel_ranges": ranges, "launches_per_step": launches,
-        "device_kernel_ms": device_ms,
-        "device_idle_share": max(0.0, 1.0 - device_ms / (1e3 * median)),
-        "top_kernels": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in kernels[:20]],
-    }
+    return {"remat": remat, **timed, "kernel_ranges": ranges, "launches_per_step": launches,
+            **prof}
 
 
-def main():
+def named_config(config_name: str, overrides, shard_glob: str):
+    """The config `config_name` with `overrides` applied (`data.root` set
+    to `shard_glob` unless they set it) and the first batch of the dataset
+    cli.train would build from it."""
+    from scp_tpu_torch.config import load_config
+    from scp_tpu_torch.train.data import build_dataset
+
+    cfg = load_config(config_name, "configs", [f"data.root={shard_glob}", *overrides])
+    return cfg, next(build_dataset(cfg).batches())
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config-name", default=None,
+                    help="a training config; without it, chip_smoke.py phase 7's EHEM recipe")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--out", default=os.path.join("chiprun_out", "profile_train.json"))
-    args = ap.parse_args()
+    ap.add_argument("overrides", nargs="*")
+    args = ap.parse_intermixed_args(argv)
+    if args.overrides and args.config_name is None:
+        ap.error("overrides apply to a --config-name; the default recipe takes none")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train.py measures the card; no CUDA device available")
 
@@ -198,18 +239,28 @@ def main():
     work = os.path.join("chiprun_out", "profile_train")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        gen_shards(os.path.join(work, "shards"), 2, N_POINTS, LIDAR_LEVEL, seed_base=1000)
-        cfg = recipe_config(os.path.join(work, "shards"), 8, 8192)
-        cfg.train.load_pretrain = CKPT
-        fixed = next(ShardDataset(cfg.data.root, 8192, 8, mode="ehem").batches())
-        runs = [measure(cfg, fixed, args.steps, remat, counted) for remat in (False, True)]
+        shards = os.path.join(work, "shards")
+        gen_shards(shards, 2, N_POINTS, LIDAR_LEVEL, seed_base=1000)
+        if args.config_name is None:
+            cfg = recipe_config(shards, 8, 8192)
+            cfg.train.load_pretrain = CKPT
+            fixed = next(ShardDataset(cfg.data.root, 8192, 8, mode="ehem").batches())
+            runs = [measure(cfg, fixed, args.steps, counted, remat=remat, static_knn=True)
+                    for remat in (False, True)]
+        else:
+            cfg, fixed = named_config(args.config_name, args.overrides,
+                                      os.path.join(shards, "*.npy"))
+            runs = [measure(cfg, fixed, args.steps, counted)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    out = {"card": card, "batch": list(fixed["data"].shape[:2]), "runs": runs}
+    out = {"card": card, "config": args.config_name or "recipe", "overrides": args.overrides,
+           "model": str(cfg.model.class_name),
+           "batch": list(fixed["data"].shape[:2]), "runs": runs}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(out, fh, indent=1)
     print(card)
+    print(f"{out['model']} ({out['config']} {' '.join(args.overrides)}), batch {out['batch']}")
     for r in runs:
         print(f"remat={r['remat']}: median {r['median_s_per_step']:.4f} s/step over {r['steps']}, "
               f"peak {r['peak_memory_gb']:.2f} GB, shares "

@@ -2,11 +2,17 @@
 (the twin of scp_tpu/train/checkpoints.py without orbax).
 
 A run checkpoint is one `torch.save` file, `<run_dir>/ckpt/epoch=E-step=S.pt`,
-holding the parameters and BatchNorm statistics, the Adam moments and
-the step: a resumed run continues bit for bit.  The bench-checkpoint
-format is scp_tpu's: a compressed `.npz` of float16 leaves under flat
-"params/<scope>/<leaf>" and "batch_stats/..." keys, which the port's
-codec (scp_tpu_torch.weights) and scp_tpu's load_params_npz both read.
+holding the parameters (and EHEM's BatchNorm statistics), the Adam
+moments and the step: a resumed run continues bit for bit under
+`torch.use_deterministic_algorithms(True)`, OctAttention's dropout
+included.  It holds no generator state because it needs none: a step's
+dropout masks are drawn from a generator seeded with (seed + 1, step)
+(train/trainer.py::dropout_generator).  The codec CLI loads the file
+(cli/codec_common.py::load_weights).  The bench-checkpoint format is
+scp_tpu's: a compressed `.npz` of float16 leaves under flat
+"params/<scope>/<leaf>" and "batch_stats/..." keys (no batch_stats for
+OctAttention), which the port's codec (scp_tpu_torch.weights) and
+scp_tpu's load_params_npz both read.
 """
 
 from __future__ import annotations

@@ -11,14 +11,14 @@ A host-side generator with a prefetch thread:
   * occupancy is shifted 1..255 -> 0..254 at load; 255 = pad/unknown
     (reference oct_attn_dataset.py:35);
   * EHEM positions are the current node's, min-max normalized per window
-    (reference ehem_dataset.py:46-48);
-  * variable-length robustness training samples a bucket length from a
-    fixed power-of-two set instead of a uniform random length, keeping the
-    number of distinct shapes bounded (the reference's uniform draw,
-    ehem.py:200-204).
-
-Only `mode="ehem"` is ported: OctAttention is not, and `mode="octattn"`
-raises.
+    (reference ehem_dataset.py:46-48), and its channels are reordered to
+    (level, octant, occupancy); OctAttention keeps (occupancy, level,
+    octant) and divides all K ancestors' positions by 2^max_level, the
+    file's deepest level (oct_attn_dataset.py:43);
+  * variable-length robustness training (EHEM only) samples a bucket
+    length from a fixed power-of-two set instead of a uniform random
+    length, keeping the number of distinct shapes bounded (the
+    reference's uniform draw, ehem.py:200-204).
 """
 
 from __future__ import annotations
@@ -40,16 +40,14 @@ class ShardDataset:
         root: str,
         context_size: int,
         batch_size: int,
-        mode: str = "ehem",
+        mode: str = "octattn",  # "octattn" | "ehem"
         vari_data_len: bool = False,
         seed: int = 42,
     ):
         """One process: scp_tpu's ShardDataset with process_index 0 of
         process_count 1 (its multi-host slicing is not ported)."""
-        if mode != "ehem":
-            raise NotImplementedError(
-                f"ShardDataset mode {mode!r}: OctAttention training is not ported yet; only "
-                "'ehem' is")
+        if mode not in ("octattn", "ehem"):
+            raise ValueError(f"ShardDataset mode {mode!r}: 'octattn' or 'ehem'")
         self.files = sorted(glob.glob(root))
         if not self.files:
             raise FileNotFoundError(f"no shards match {root!r}")
@@ -75,18 +73,27 @@ class ShardDataset:
         n_win = sum(r // self.context_size for r in self.file_rows)
         return max(n_win // global_bs, 1)
 
-    def _window(self, shards, fi: int, w: int):
-        """One (data(N,4,3) int32, pos float32, label int32) window."""
+    def _window(self, shards, fi: int, w: int, max_levels: dict):
+        """One (data(N,4,3) int32, pos float32, label int32) window;
+        `max_levels` caches each file's deepest level."""
         csz = self.context_size
-        rows = np.array(shards[fi][w * csz : (w + 1) * csz])
+        shard = shards[fi]
+        rows = np.array(shard[w * csz : (w + 1) * csz])
         rows[:, :, 0] -= 1  # occupancy 1..255 -> 0..254
-        pos = rows[:, -1, 3:6].astype(np.float32)
-        lo, hi = pos.min(), pos.max()
-        pos = (pos - lo) / (hi - lo + 1e-9)
-        data = rows[:, :, :3]
-        # (occ, level, octant) -> (level, octant, occ)
-        data = np.concatenate((data[:, :, 1:], data[:, :, :1]), axis=2)
-        label = data[:, -1, 2].copy()
+        if self.mode == "ehem":
+            pos = rows[:, -1, 3:6].astype(np.float32)
+            lo, hi = pos.min(), pos.max()
+            pos = (pos - lo) / (hi - lo + 1e-9)
+            data = rows[:, :, :3]
+            # (occ, level, octant) -> (level, octant, occ)
+            data = np.concatenate((data[:, :, 1:], data[:, :, :1]), axis=2)
+            label = data[:, -1, 2].copy()
+        else:
+            if fi not in max_levels:
+                max_levels[fi] = int(shard[:, -1, 1].max())
+            pos = (rows[:, :, 3:6] / float(2 ** max_levels[fi])).astype(np.float32)
+            data = rows[:, :, :3]
+            label = data[:, -1, 0].copy()
         return data.astype(np.int32), pos, label.astype(np.int32)
 
     def batches(self, start_step: int = 0):
@@ -112,6 +119,7 @@ class ShardDataset:
             )
         n_win = len(index)
         spe = self.steps_per_epoch()
+        max_levels: dict[int, int] = {}
         step = start_step
         while True:
             epoch = step // spe
@@ -125,13 +133,13 @@ class ShardDataset:
                 i = step % spe
                 base = i * self.batch_size
                 items = [
-                    self._window(shards, *index[perm[(base + j) % n_win]])
+                    self._window(shards, *index[perm[(base + j) % n_win]], max_levels)
                     for j in range(self.batch_size)
                 ]
                 data = np.stack([x[0] for x in items])
                 pos = np.stack([x[1] for x in items])
                 label = np.stack([x[2] for x in items])
-                if self.vari_data_len and draws[i] < 0.3:
+                if self.mode == "ehem" and self.vari_data_len and draws[i] < 0.3:
                     sz = int(sizes[i])
                     if sz < data.shape[1]:
                         data, pos, label = data[:, :sz], pos[:, :sz], label[:, :sz]

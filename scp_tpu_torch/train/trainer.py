@@ -1,4 +1,5 @@
-"""Single-device EHEM trainer (the twin of scp_tpu/train/trainer.py).
+"""Single-device trainer of EHEM and OctAttention (the twin of
+scp_tpu/train/trainer.py).
 
   * loss = cross-entropy / ln 2, bits per occupancy symbol, with scp_tpu's
     one-hot masked sum: the pad label 255 matches no class, so a pad node
@@ -11,10 +12,14 @@
   * a checkpoint every epoch, all kept, with the archived config and a
     metrics.jsonl of the JAX trainer's keys.
 
-The model runs the hand-written kernels in its forward (A, B, C; D and E
-with pallas_knn / pallas_attn) and scp_tpu's custom_vjp backward.  The
-data-parallel mesh and multi-host training of scp_tpu
-(train/distributed.py) are not ported yet.
+The model is the config's (models.build_model).  EHEM runs the
+hand-written kernels in its forward (A, B, C; D and E with pallas_knn /
+pallas_attn) and scp_tpu's custom_vjp backward; OctAttention is plain
+PyTorch, as scp_tpu's is einsums.  OctAttention's dropout masks come from
+a generator seeded with (seed + 1, step) (`dropout_generator`), the
+twin of scp_tpu's fold_in(PRNGKey(seed + 1), step): a step's masks are a
+function of the seed and the step alone.  The data-parallel mesh and
+multi-host training of scp_tpu (train/distributed.py) are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,12 +29,13 @@ import math
 import os
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from scp_tpu_torch import resolve_device
 from scp_tpu_torch.config import Config, save_config
-from scp_tpu_torch.models.ehem import EHEM
+from scp_tpu_torch.models import build_model
 from scp_tpu_torch.models.layers import flax_init_
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
@@ -62,6 +68,13 @@ def make_optimizer(params, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=lr, betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS)
 
 
+def dropout_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step `step`'s dropout masks, on `device`: seeded
+    from (seed + 1, step) through numpy's SeedSequence."""
+    state = np.random.SeedSequence([seed + 1, step]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -70,18 +83,15 @@ def _sync(device):
 class Trainer:
     """`switches` are EHEM constructor arguments scp_tpu reads from the
     environment (static_knn, pallas_knn, pallas_attn, fused_edgeconv) and
-    the port's plain_seams."""
+    the port's plain_seams; any of them on another model is a ValueError."""
 
     def __init__(self, cfg: Config, steps_per_epoch: int, device=None, **switches):
-        if str(cfg.model.get("class_name", "EHEM")) != "EHEM":
-            raise NotImplementedError(
-                f"model {cfg.model.class_name}: OctAttention training is not ported yet "
-                "(its codec is); the port trains EHEM only")
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
         self.device = resolve_device(device)
         dtype = torch.bfloat16 if cfg.get("bf16", True) else torch.float32
-        self.model = EHEM.from_config(cfg, dtype, device=self.device, **switches)
+        self.model = build_model(cfg, dtype, device=self.device, **switches)
+        self.seed = int(cfg.get("seed", 42))
         self.schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.opt: torch.optim.Adam | None = None
         self.step = 0
@@ -95,13 +105,13 @@ class Trainer:
         from scp_tpu_torch.train import checkpoints as ckpt
         from scp_tpu_torch.weights import load_into, to_variables
 
-        flax_init_(self.model, torch.Generator().manual_seed(int(self.cfg.get("seed", 42))))
+        flax_init_(self.model, torch.Generator().manual_seed(self.seed))
         path = self.cfg.train.get("load_pretrain")
         if path:
             if not str(path).endswith(".npz"):
                 raise ValueError(f"load_pretrain {path!r}: the port warm-starts from a bench "
                                  ".npz (orbax run directories are the JAX package's)")
-            # params only, as scp_tpu: the BatchNorm statistics stay fresh
+            # params only, as scp_tpu: the BatchNorm statistics (EHEM's) stay fresh
             pre = ckpt.load_params_npz(path)["params"]  # pre-fusion q/k/v scopes fused
             now = to_variables(self.model)
             load_into(self.model, {**now, "params": ckpt.filter_compatible(pre, now["params"])})
@@ -118,6 +128,14 @@ class Trainer:
                 torch.as_tensor(batch["pos"]).to(dev, non_blocking=True),
                 torch.as_tensor(batch["label"]).to(dev, non_blocking=True))
 
+    def _forward(self, data, pos):
+        """The model in train mode; a model that drops (OctAttention with
+        dropout > 0) gets the generator of this step's masks."""
+        if getattr(self.model, "dropout", 0.0) > 0.0:
+            return self.model(data, pos,
+                              generator=dropout_generator(self.seed, self.step, self.device))
+        return self.model(data, pos)
+
     def train_step(self, batch, timings: dict | None = None):
         """One Adam step on `batch`; returns the loss (a 0-d tensor on the
         device).  With `timings`, synchronizes and adds the forward,
@@ -128,7 +146,7 @@ class Trainer:
         self.opt.zero_grad(set_to_none=True)
         self.model.train()
         data, pos, label = self._batch(batch)
-        loss = cross_entropy_bits(self.model(data, pos), label)
+        loss = cross_entropy_bits(self._forward(data, pos), label)
         if timings is not None:
             _sync(self.device)
             timings["forward"] = timings.get("forward", 0.0) + time.perf_counter() - t
@@ -152,7 +170,8 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate(self, val_batches) -> float:
-        """Mean held-out bits/node over a fixed batch list (running BatchNorm)."""
+        """Mean held-out bits/node over a fixed batch list, in eval mode
+        (running BatchNorm, no dropout)."""
         was = self.model.training
         self.model.eval()
         total = 0.0

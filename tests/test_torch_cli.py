@@ -319,10 +319,8 @@ def test_mullevel_encode_decode_matches_jax(tmp_path, monkeypatch, runs, session
 
 def test_octattn_flags_and_runs_are_refused(runs, tmp_path):
     """What the port still refuses: OctAttention's schedule flags on an EHEM
-    run (they would be ignored), OctAttention training, and EHEM's staged
-    and full coding modes."""
+    run (they would be ignored) and EHEM's staged and full coding modes."""
     from scp_tpu_torch.codec.ehem_codec import EHEMCodec
-    from scp_tpu_torch.train.trainer import Trainer
 
     _, tck, data, _ = runs
     for flag in ("--incremental", "--sequential"):
@@ -330,9 +328,6 @@ def test_octattn_flags_and_runs_are_refused(runs, tmp_path):
             tencode_cli.main(["--ckpt_path", tck, "--type", "kitti", "--spher", "--test_files",
                               os.path.join(data, "scan0.ply"), "--out_dir", str(tmp_path),
                               flag, *PORT_FLAGS])
-    cfg = tconfig.load_config("train_kitti.yaml", CONFIGS)
-    with pytest.raises(NotImplementedError, match="OctAttention"):
-        Trainer(cfg, steps_per_epoch=1, device="cpu")
     tiny = TEHEM(self_depths=(2, 2), cross_depths=(1,), embed_dim=64, num_heads=2,
                  window_size=16, mlp_ratio=2.0, knn_k=4, device="cpu")
     for mode in ("staged", "full"):

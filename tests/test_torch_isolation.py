@@ -51,7 +51,8 @@ for m in ("scp_tpu_torch.config", "scp_tpu_torch.train.data", "scp_tpu_torch.tra
           "scp_tpu_torch.tools.gene_normals", "scp_tpu_torch.tools.bench",
           "scp_tpu_torch.models.octattention", "scp_tpu_torch.codec.octattn_rans",
           "scp_tpu_torch.codec.octattn_codec", "scp_tpu_torch.ac", "scp_tpu_torch.ac.py_coder",
-          "scp_tpu_torch.native.ac_native", "scp_tpu_torch.tools.bench_octattn"):
+          "scp_tpu_torch.native.ac_native", "scp_tpu_torch.tools.bench_octattn",
+          "scp_tpu_torch.tools.preprocess", "scp_tpu_torch.tools.multi_preproc"):
     assert m in mods, m
 
 from scp_tpu_torch.codec.ehem_codec import EHEMCodec

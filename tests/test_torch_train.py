@@ -103,7 +103,8 @@ def test_batches_equal_jax_package_for_three_epochs(tmp_path, rng, vari):
 
 def test_vari_data_len_takes_the_buckets(tmp_path, rng):
     root = make_shards(tmp_path, rng, bits=7)
-    ds = tdata.ShardDataset(root, context_size=8192, batch_size=1, vari_data_len=True, seed=3)
+    ds = tdata.ShardDataset(root, context_size=8192, batch_size=1, mode="ehem", vari_data_len=True,
+                            seed=3)
     gen = ds.batches()
     seen = {next(gen)["data"].shape[1] for _ in range(30)}
     assert seen <= set(tdata.EHEM_LEN_BUCKETS) | {8192} and len(seen) > 1
@@ -111,9 +112,16 @@ def test_vari_data_len_takes_the_buckets(tmp_path, rng):
 
 
 def test_octattn_mode_is_not_ported(tmp_path, rng):
+    """The octattn mode is ported now (its parity: tests/test_torch_octattn_train.py):
+    it is the default, and it returns (occupancy, level, octant) batches."""
     root = make_shards(tmp_path, rng, n_files=1)
-    with pytest.raises(NotImplementedError, match="OctAttention"):
-        tdata.ShardDataset(root, context_size=32, batch_size=2, mode="octattn")
+    ds = tdata.ShardDataset(root, context_size=32, batch_size=2)
+    assert ds.mode == "octattn"
+    b = next(ds.batches())
+    assert b["data"].shape == b["pos"].shape == (2, 32, 4, 3) and b["label"].shape == (2, 32)
+    assert (b["label"] == b["data"][:, :, -1, 0]).all()
+    with pytest.raises(ValueError, match="mode"):
+        tdata.ShardDataset(root, context_size=32, batch_size=2, mode="voxel")
 
 
 def test_prefetch_hands_over_worker_errors():
@@ -189,6 +197,10 @@ def test_adam_updates_match_optax(rng):
 
 
 def test_trainer_refuses_octattention():
+    """OctAttention trains now; what the trainer still refuses is an EHEM
+    switch on it."""
     cfg = tconfig.load_config("train_kitti.yaml", CONFIG_DIR)
-    with pytest.raises(NotImplementedError, match="OctAttention"):
-        ttrainer.Trainer(cfg, steps_per_epoch=1, device="cpu")
+    assert type(ttrainer.Trainer(cfg, steps_per_epoch=1, device="cpu").model).__name__ == (
+        "OctAttention")
+    with pytest.raises(ValueError, match="switches"):
+        ttrainer.Trainer(cfg, steps_per_epoch=1, device="cpu", static_knn=True)
