@@ -123,6 +123,28 @@ Phases, each printed as it ends (any failure exits non-zero):
      10d. the trained run dir through `cli.encode --incremental` and
           `cli.decode` with its ground-truth check, on the bench sweep at
           lidar level 12 (phase 9's): lossless; bpp printed, not gated.
+ 11. EHEM's staged and full coding modes (scp_tpu's SCP_CODEC_MODE; the
+     host arithmetic coder, native/src/ac.cpp) with phase 3's model:
+     11a. phase 4's slices encoded and decoded in process in each mode:
+          lossless; staged within 2% of full's bits; full within 1% of the
+          ideal bits of a rans encode's symbols (its payload less the
+          rANS lanes' final states), staged within 3%; each mode's encode
+          and decode timers (`codec.timers`) and the decode wall split
+          into model + fetch and host coder; A, B and C launch inside
+          every phase call (decode_phase1: A and B, decode_phase2: A and
+          C), D and E never;
+     11b. the evaluation pipeline in a temp dir under chiprun_out/ that
+          the phase removes: the sweep as a KITTI .bin,
+          `tools.test_gene --type kitti --lidar_level 16 --spher` (shard,
+          _quant.ply, _meta.npy, _manifest.npz), then `cli.encode
+          --static-knn --ehem-mode staged|full --preproc_path` and
+          `cli.decode` with its ground-truth check: lossless, the header
+          names the mode, the payload byte for byte the codec's in-process
+          stream of the shard's slices; `tools.psnr_test --with_normals`
+          on the _quant.ply (normals from the native k-NN); the native
+          KD-tree's D1, D2 and Chamfer against scipy's on the sweep and its
+          quantized cloud within 1e-9 relative (both times printed); and
+          phase 8's metrics stage ran on the native library (its time).
 
 Phase 2 also holds A, B, C and E in f32 against their plain versions
 (atol = rtol = 1e-4), and times the attention core that B, C and E share
@@ -1425,6 +1447,304 @@ def octattn_training_phase() -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- phase 11: EHEM's staged and full modes, the evaluation pipeline ---------
+
+# staged vs full bits: scp_tpu's own bound for the staged rate against the
+# single-stage rate (tests/test_staged.py).  The factorization is exact, but
+# the two quantize differently: staged's ramps take 32 of 65,536 slots per
+# node against full's 255, while a symbol the model all but rules out costs
+# at most 16 bits in full mode and up to 32 when staged
+MODES_RTOL = 2e-2
+# each host-coder mode vs the ideal bits of the rans mode's coded symbols,
+# sum(-log2(freq / 65536)) of phase 4's configuration: its payload adds the
+# rANS lanes' final states (up to 32 bits each, 1024 lanes), which the
+# arithmetic coder does not write.  What remains: the levels of <= 512
+# nodes (the model here, a uniform prior in rans mode), each level's
+# partial chunk (an 8192 or 1024 bucket here, the tail-merge plan's pow2
+# bucket in rans mode: other pad rows beside the real ones) and the
+# arithmetic coder's own overhead
+RANS_RTOL = 1e-2
+METRICS_RTOL = 1e-9  # native KD-tree vs scipy: D1, D2, Chamfer (summation order only)
+
+
+class PhaseCalls:
+    """Counts the kernel launches of A, B and C inside every phase call of
+    a model (decode_phase1 / decode_phase2 wrapped on the instance)."""
+
+    def __init__(self, model, counted):
+        self.model, self.counted, self.calls = model, counted, []
+
+    def _wrap(self, name, fn):
+        def run(*args, **kwargs):
+            before = {k: self.counted[k].launches for k in "ABC"}
+            out = fn(*args, **kwargs)
+            self.calls.append((name, tuple(args[0].shape[:2]),
+                               {k: self.counted[k].launches - before[k] for k in "ABC"}))
+            return out
+        return run
+
+    def __enter__(self):
+        self.model.decode_phase1 = self._wrap("p1", self.model.decode_phase1)
+        self.model.decode_phase2 = self._wrap("p2", self.model.decode_phase2)
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.decode_phase1, self.model.decode_phase2
+
+    def check(self, tag):
+        """Every phase-1 call launched A and B, every phase-2 call A and C."""
+        need = {"p1": "AB", "p2": "AC"}
+        bad = [c for c in self.calls if any(not c[2][k] for k in need[c[0]])]
+        if not self.calls or bad:
+            raise AssertionError(f"phase 11 {tag}: phase calls without their kernels: {bad[:5]} "
+                                 f"of {len(self.calls)}")
+        return {k: sum(1 for c in self.calls if c[0] == k) for k in ("p1", "p2")}
+
+
+def rans_ideal_bits(model, slices):
+    """(payload bits, ideal bits) of a rans-mode encode of `slices`: the
+    ideal bits are sum(-log2(freq / 65536)) over the coded symbols."""
+    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+
+    codec = EHEMCodec(model, context_size=8192)
+    enc = codec.new_stream_encoder()
+    ideal, append = [0.0], enc.append_group
+
+    def counting(sf, n):
+        ideal[0] += float(-torch.log2(sf[:n, 1].double() / 65536.0).sum())
+        return append(sf, n)
+
+    enc.append_group = counting
+    codec.encode_into(enc, slices)
+    _, bits, _ = codec.finish_stream(enc)
+    return bits, ideal[0]
+
+
+def host_modes_roundtrip(model, mode, slices, counted):
+    """11a: one encode and one decode of `slices` in `mode` with the
+    lossless check; counts reset just before, read just after."""
+    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+    from scp_tpu_torch.tools.profile_train import reset_counts
+
+    codec = EHEMCodec(model, context_size=8192, mode=mode)
+    torch.cuda.synchronize()
+    reset_counts(counted.values())
+    with PhaseCalls(model, counted) as pc:
+        t0 = time.perf_counter()
+        stream, bits, _ = codec.encode_to_stream(slices)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        enc_timers, enc_report = dict(codec.timers.totals), codec.timers.report()
+        codec.timers.clear()
+        t0 = time.perf_counter()
+        dec = codec.new_stream_decoder(stream, codec.ac_symbols_per_node * len(slices.occ_stream),
+                                       coding_params=codec.coding_params())
+        codes = codec.decode(dec, slices.max_level, np.array(slices.pos_mm, np.int64),
+                             angular=True, ground_truth=slices.occ_stream,
+                             level_sizes=slices.level_sizes)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    if codes.shape != slices.occ_stream.shape or not (codes == slices.occ_stream).all():
+        raise AssertionError(f"phase 11a {mode}: decode is not lossless")
+    calls = pc.check(mode)
+    if launches["D"] or launches["E"]:
+        raise AssertionError(f"phase 11a {mode}: D or E launched with their switches off")
+    coder = codec.timers.totals.get("ac_decode", 0.0)
+    return dict(bits=bits, bpp=bits / N_POINTS,
+                bytes=len(stream), encode_s=t_enc, decode_s=t_dec,
+                decode_host_coder_s=coder, decode_model_fetch_s=t_dec - coder,
+                encode_host_coder_s=enc_timers.get("ac_encode", 0.0),
+                encode_timers=enc_report, decode_timers=codec.timers.report(),
+                launches=launches, phase_calls=calls)
+
+
+def _metrics_both(ref, quant, normals):
+    """The native KD-tree's D1/D2 PSNR and Chamfer against scipy's path on
+    the same clouds; both times."""
+    from scp_tpu_torch import metrics
+
+    out = {}
+    for tag, native in (("native", True), ("scipy", False)):
+        t0 = time.perf_counter()
+        d1, d2 = metrics.d1_d2_psnr(ref, quant, metrics.PEAKS["kitti"], normals, native=native)
+        cd = metrics.chamfer(ref, quant, native=native)
+        out[tag] = dict(d1=float(d1), d2=float(d2), chamfer=float(cd),
+                        s=time.perf_counter() - t0)
+    for k in ("d1", "d2", "chamfer"):
+        a, b = out["native"][k], out["scipy"][k]
+        if not (math.isfinite(a) and abs(a - b) <= METRICS_RTOL * abs(b)):
+            raise AssertionError(f"phase 11b: native {k} {a} vs scipy {b}")
+    return out
+
+
+def host_modes_phase(model, counted, slices, p4, p8_metrics):
+    """Phase 11 (see the module docstring); returns its numbers.  `model`
+    and `slices` are phase 4's; `p8_metrics` is (phase 8's metrics stage
+    seconds, the native metric calls it made)."""
+    import shutil
+    import tempfile
+
+    from scp_tpu_torch.cli import decode as decode_cli
+    from scp_tpu_torch.cli import encode as encode_cli
+    from scp_tpu_torch.codec.bitstream import unpack_stream
+    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+    from scp_tpu_torch.codec.slices import split_levels
+    from scp_tpu_torch.config import load_config, save_config
+    from scp_tpu_torch.core.pointcloud import read_points
+    from scp_tpu_torch.metrics import estimate_normals
+    from scp_tpu_torch.native import metrics_native
+    from scp_tpu_torch.tools import gene_normals, psnr_test, test_gene
+    from scp_tpu_torch.tools.profile_train import reset_counts
+
+    out = {}
+    # ---- 11a: in-process roundtrips of phase 4's slices
+    t0 = time.time()
+    for mode in ("staged", "full"):
+        r = host_modes_roundtrip(model, mode, slices, counted)
+        out[mode] = r
+        say(f"phase 11a {mode}: lossless, bpp={r['bpp']:.4f} (rans {p4['bpp']:.4f}), "
+            f"bytes={r['bytes']}, encode {r['encode_s']:.3f} s (host coder "
+            f"{r['encode_host_coder_s']:.3f}), decode {r['decode_s']:.3f} s = model + fetch "
+            f"{r['decode_model_fetch_s']:.3f} + host coder {r['decode_host_coder_s']:.3f}; "
+            f"phase calls {r['phase_calls']}; launches A/B/C/D/E "
+            f"{[r['launches'][k] for k in 'ABCDE']}")
+        say(f"  {mode} encode timers: {r['encode_timers']}")
+        say(f"  {mode} decode timers: {r['decode_timers']}")
+    staged, full = out["staged"], out["full"]
+    if abs(staged["bits"] - full["bits"]) > MODES_RTOL * full["bits"]:
+        raise AssertionError(f"phase 11a: staged {staged['bits']} bits vs full {full['bits']}")
+    rans_bits, rans_ideal = rans_ideal_bits(model, slices)
+    if rans_bits != p4["bytes"] * 8:
+        raise AssertionError(f"phase 11a: rans {rans_bits} bits, phase 4 {p4['bytes'] * 8}")
+    # full codes the rans mode's own rows; staged may add MODES_RTOL to that
+    for mode, tol in (("staged", RANS_RTOL + MODES_RTOL), ("full", RANS_RTOL)):
+        out[mode]["vs_rans_ideal"] = out[mode]["bits"] / rans_ideal - 1
+        if abs(out[mode]["bits"] - rans_ideal) > tol * rans_ideal:
+            raise AssertionError(f"phase 11a: {mode} {out[mode]['bits']} bits vs the rans "
+                                 f"symbols' ideal {rans_ideal:.1f}")
+    say(f"  staged / full bits {staged['bits']} / {full['bits']} "
+        f"({staged['bits'] / full['bits'] - 1:+.5f}); rans payload {rans_bits} bits, its "
+        f"symbols' ideal {rans_ideal:.1f} (lane states {rans_bits - rans_ideal:.1f}); "
+        f"staged / full vs that ideal {out['staged']['vs_rans_ideal']:+.5f} / "
+        f"{out['full']['vs_rans_ideal']:+.5f}")
+    say(f"phase 11a: {time.time() - t0:.2f} s")
+
+    # ---- 11b: test_gene -> cli.encode -> cli.decode -> psnr_test
+    t0 = time.time()
+    base = os.path.join(HERE, "chiprun_out")
+    os.makedirs(base, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_", dir=base)
+    try:
+        seq = os.path.join(work, "sequences", "00")
+        os.makedirs(seq)
+        cloud = os.path.join(seq, "000000.bin")
+        pts = synth_kitti(np.random.default_rng(0), N_POINTS).astype(np.float32)
+        np.hstack([pts, np.zeros((N_POINTS, 1), np.float32)]).tofile(cloud)
+        run = os.path.join(work, "run")
+        save_config(load_config("train_kitti_ehem.yaml", os.path.join(HERE, "configs")), run)
+        ck = os.path.join(run, "ckpt", os.path.basename(CKPT))
+        os.makedirs(os.path.dirname(ck))
+        shutil.copyfile(CKPT, ck)
+
+        pre = os.path.join(work, "pre")
+        t1 = time.perf_counter()
+        test_gene.main(["--type", "kitti", "--ori_dir", cloud, "--out_dir", pre,
+                        "--lidar_level", str(LIDAR_LEVEL), "--spher"])
+        t_gene = time.perf_counter() - t1
+        name = "00000000"
+        for suffix in (".npy", "_quant.ply", "_meta.npy", "_manifest.npz"):
+            if not os.path.exists(os.path.join(pre, name + suffix)):
+                raise AssertionError(f"phase 11b: test_gene wrote no {name + suffix}")
+        ctx = np.load(os.path.join(pre, name + ".npy"))
+        meta = np.load(os.path.join(pre, name + "_meta.npy"))
+        say(f"  test_gene: {t_gene:.3f} s; shard {ctx.shape}, meta bin_num {int(meta[0])}, "
+            f"chamfer {meta[1]:.6f}")
+
+        flags = ["--ckpt_path", ck, "--type", "kitti", "--static-knn", "--test_files", cloud]
+        sl_cli = split_levels(ctx, angular=True, lidar_level_clip=LIDAR_LEVEL)
+        for mode in ("staged", "full"):
+            bins = os.path.join(work, f"bins_{mode}")
+            reset_counts(counted.values())
+            t1 = time.perf_counter()
+            (enc,) = encode_cli.main([*flags, "--lidar_level", str(LIDAR_LEVEL), "--spher",
+                                      "--preproc_path", pre + "/", "--ehem-mode", mode,
+                                      "--out_dir", bins])
+            enc_wall = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            (dec,) = decode_cli.main([*flags, "--preproc_path", pre, "--bin_dir", bins])
+            dec_wall = time.perf_counter() - t1
+            launches = {k: fn.launches for k, fn in counted.items()}
+            if not all(launches[k] for k in "ABC"):
+                raise AssertionError(f"phase 11b {mode}: A, B or C never launched: {launches}")
+            quant = read_points(os.path.join(pre, name + "_quant.ply"))
+            got = np.sort(dec["points"].astype(np.float64), axis=0)
+            want = np.sort(quant.astype(np.float64), axis=0)
+            if got.shape != want.shape or not np.allclose(got, want, rtol=0, atol=1e-4):
+                raise AssertionError(f"phase 11b {mode}: decoded points differ from _quant.ply")
+            with open(enc["outputfile"], "rb") as fh:
+                header, payload = unpack_stream(fh.read())
+            if header.coding_mode != mode:
+                raise AssertionError(f"phase 11b: header mode {header.coding_mode} != {mode}")
+            # the payload is the in-process stream of the shard's slices
+            # (the .bin's float32 points give another octree than phase
+            # 4's float64 sweep, so 11a's stream is not the reference)
+            want_stream, _, _ = EHEMCodec(model, context_size=8192, mode=mode).encode_to_stream(
+                sl_cli, lidar_clip=LIDAR_LEVEL)
+            if payload != want_stream:
+                raise AssertionError(f"phase 11b {mode}: the CLI's payload differs from the "
+                                     "in-process stream")
+            et, dt = enc["timings"], dec["timings"]
+            say(f"  cli {mode}: encode wall {enc_wall:.3f} s (model + coder "
+                f"{et['model_coder']:.3f}, file I/O {et['file_io']:.3f}), decode wall "
+                f"{dec_wall:.3f} s (model + coder {dt['model_coder']:.3f}, deoctree "
+                f"{dt['deoctree']:.3f}); bpp {enc['bpp']:.4f}, lossless against the shard, "
+                f"payload = in-process stream; launches A/B/C {[launches[k] for k in 'ABC']}")
+            out[f"cli_{mode}"] = dict(encode_wall_s=enc_wall, decode_wall_s=dec_wall,
+                                      bpp=enc["bpp"], encode_timings=et, decode_timings=dt,
+                                      launches=launches)
+
+        # psnr_test on the _quant.ply, with the original's normals (D2)
+        ref = read_points(cloud)
+        t1 = time.perf_counter()
+        normals = estimate_normals(ref)
+        t_normals = time.perf_counter() - t1
+        ndir = os.path.join(work, "normals", "00")
+        gene_normals.write_ply_with_normals(os.path.join(ndir, "000000.ply"), ref, normals)
+        t1 = time.perf_counter()
+        printed = psnr_test.main(["--type", "kitti", "--ori_dir",
+                                  os.path.join(ndir, "000000.ply"), "--quant_dir", pre,
+                                  "--with_normals"])
+        t_psnr = time.perf_counter() - t1
+        if len(printed["d1"]) != 1 or not (np.isfinite(printed["d1"]).all()
+                                           and np.isfinite(printed["d2"]).all()):
+            raise AssertionError(f"phase 11b: psnr_test printed {printed}")
+        # the native metrics against scipy's path on the sweep and its
+        # quantized cloud
+        both = _metrics_both(ref, read_points(os.path.join(pre, name + "_quant.ply")), normals)
+        if not metrics_native.available():
+            raise AssertionError("phase 11b: metrics_native did not build")
+        p8_s, p8_calls = p8_metrics
+        if not p8_calls:
+            raise AssertionError("phase 8's metrics stage made no native call")
+        n, sp = both["native"], both["scipy"]
+        say(f"  psnr_test --with_normals: D1 {printed['d1'][0]:.4f} D2 {printed['d2'][0]:.4f} "
+            f"chamfer {printed['chamfer'][0]:.6f} in {t_psnr:.3f} s; normals (native k-NN, k=30) "
+            f"{t_normals:.3f} s")
+        say(f"  metrics native vs scipy: D1 {n['d1']!r} / {sp['d1']!r}, D2 {n['d2']!r} / "
+            f"{sp['d2']!r}, chamfer {n['chamfer']!r} / {sp['chamfer']!r}; time native "
+            f"{n['s']:.3f} s, scipy {sp['s']:.3f} s")
+        say(f"  phase 8's metrics stage on the native KD-tree: {p8_s:.3f} s "
+            f"({p8_calls} native calls)")
+        out.update(test_gene_s=t_gene, psnr_test_s=t_psnr, normals_s=t_normals,
+                   psnr_test=printed, metrics=both, phase8_metrics_s=p8_s,
+                   phase8_native_calls=p8_calls)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say(f"phase 11b: {time.time() - t0:.2f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1570,8 +1890,12 @@ def main() -> int:
     say(json.dumps({"training": {k: v for k, v in p7.items() if not k.startswith("profile")}}))
 
     # ---- 8. the codec CLI on the card
+    from scp_tpu_torch.native import metrics_native
+
     t0 = time.time()
+    native_calls = metrics_native.calls
     p8 = cli_phase(model, counted, p4)
+    p8_native_calls = metrics_native.calls - native_calls
     say(f"phase 8 codec CLI: {time.time() - t0:.2f} s")
     for k in "ABC":
         rows[k]["cli_launches"] = p8["launches"][k]
@@ -1604,6 +1928,16 @@ def main() -> int:
     for k in "ABCDE":
         rows[k]["octattn_train_launches"] = 0
     say(json.dumps({"octattn_training": p10}))
+
+    # ---- 11. EHEM's staged and full modes, test_gene -> CLIs -> psnr_test
+    t0 = time.time()
+    p11 = host_modes_phase(model, counted, slices, p4,
+                           (p8["encode_timings"]["metrics"], p8_native_calls))
+    say(f"phase 11 staged / full and the evaluation pipeline: {time.time() - t0:.2f} s")
+    for k in "ABCDE":
+        for mode in ("staged", "full"):
+            rows[k][f"{mode}_launches"] = p11[mode]["launches"][k]
+    say(json.dumps({"host_modes": p11}))
     say(f"total wall {time.time() - t_start:.1f} s")
 
     for k, prefixes in (("A", ("mlp_sm90<",)), ("B", ("gemm_sm90<",)), ("C", ("gemm_sm90<",)),

@@ -5,7 +5,8 @@ of it (nor JAX), keeping its own copies of the numpy host modules.  Its
 subpackages mirror scp_tpu's:
 
   core    — numpy geometry: Morton codes, octree, transforms, quantization.
-  codec   — level slicing, stream container, device rANS, the EHEM codec.
+  codec   — level slicing, stream container, device rANS, the EHEM codec
+            (rans, staged and full modes; codec/staged.py), OctAttention's.
   models  — torch EHEM: DGCNN trunk, 1-D Swin, multiscale heads.
   ops     — KNN, the fused KNN distance + top-k, the fused Swin
             sublayers and window attention, with their Hopper kernels
@@ -16,14 +17,18 @@ subpackages mirror scp_tpu's:
             pipeline, loss, Adam + StepLR, OctAttention's dropout masks,
             checkpoints (and scp_tpu's npz format).
   config  — the YAML config system, read without PyYAML.
-  metrics — D1/D2 PSNR and Chamfer (scipy's KD-tree).
-  native  — the C++ octree builder, built with g++ at first use and
-            loaded with ctypes.
-  cli     — the codec CLIs (encode, decode, selftest; EHEM in rans mode)
-            and the training CLI.
-  tools   — the shard-preprocessing CLIs (preprocess, multi_preproc,
-            gene_normals), the port bench (single-scan throughput on the
-            card), the bench-checkpoint recipe, profiles, probes.
+  metrics — D1/D2 PSNR and Chamfer (the native KD-tree; scipy's with
+            native=False).
+  native  — the C++ octree builder, range coder and KD-tree metrics,
+            built with g++ at first use and loaded with ctypes.
+  cli     — the codec CLIs (encode, decode, selftest; EHEM in its three
+            coding modes, OctAttention in its three schedules) and the
+            training CLI.
+  tools   — the test-data and shard CLIs (test_gene, psnr_test,
+            preprocess, multi_preproc, gene_normals), the port bench
+            (single-scan throughput on the card), the bench-checkpoint
+            recipe, profiles, probes.
+  utils   — stage timers and profiler annotations.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with
 no card and no such argument they raise instead of falling back.

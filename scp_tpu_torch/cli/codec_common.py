@@ -1,6 +1,6 @@
 """Shared encode/decode session logic of the port's codec CLIs (the twin of
-scp_tpu/cli/codec_common.py: EHEM in rans mode, OctAttention in its three
-schedules).
+scp_tpu/cli/codec_common.py: EHEM in its three coding modes, OctAttention
+in its three schedules).
 
 Handles: the run config, the weights, the preprocessing cache (`_meta.npy`
 compatible with the reference's, encode_dataset_ehem.py:132, and the
@@ -14,8 +14,8 @@ directories are refused: the card's machine has no orbax.
 
 What scp_tpu reads from the environment are constructor arguments here:
 `dtype` (SCP_CODEC_DTYPE: bf16 for EHEM and f32 for OctAttention by
-default, as there), EHEM's `static_knn`, `pallas_knn`, `pallas_attn`,
-OctAttention's `octattn_coder` (SCP_OCTATTN_CODER), `octattn_fused`
+default, as there), EHEM's `ehem_mode` (SCP_CODEC_MODE: rans, staged or
+full), `static_knn`, `pallas_knn`, `pallas_attn`, OctAttention's `octattn_coder` (SCP_OCTATTN_CODER), `octattn_fused`
 (SCP_OCTATTN_FUSED) and `octrans_cap` (SCP_OCTRANS_CAP); and `device`
 (cuda unless told otherwise).
 
@@ -25,7 +25,8 @@ host coder; "full": the window schedule on the host coder), and decode
 follows it.  The window schedule's stamp also names its window (fast or
 sequential) and level_wise, which scp_tpu leaves to the decoder's flags:
 a decode with other flags is refused instead of desynchronizing the
-coder.  EHEM's staged / full coding modes are not ported yet (ROADMAP.md).
+coder.  An EHEM stream's header names its coding mode, and decode rebuilds
+the codec in that mode.
 """
 
 from __future__ import annotations
@@ -44,9 +45,9 @@ from scp_tpu_torch.codec.bitstream import (
     reference_style_name,
     unpack_stream,
 )
-from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+from scp_tpu_torch.codec.ehem_codec import MODES, EHEMCodec
 from scp_tpu_torch.codec.octattn_codec import OctAttentionCodec
-from scp_tpu_torch.codec.octattn_rans import DEFAULT_CAP, OctRansEncoder
+from scp_tpu_torch.codec.octattn_rans import DEFAULT_CAP
 from scp_tpu_torch.codec.slices import split_levels
 from scp_tpu_torch.config import load_run_config
 from scp_tpu_torch.core.octree import deoctree
@@ -100,25 +101,22 @@ def load_weights(model: torch.nn.Module, ckpt_path: str) -> torch.nn.Module:
     return model
 
 
-def finish_stream(enc):
-    """-> (payload bytes, bit count, n_sym for the header) of any encoder."""
-    if isinstance(enc, ac.StreamingEncoder):
-        n_sym = enc.n_sym
-        payload, bits = enc.finish()
-        return payload, bits, n_sym
-    return EHEMCodec.finish_stream(enc)
-
-
 class CodecSession:
     """One model + codec serving encode_file / decode_file calls.
     `timings` holds the seconds of the last call, by stage."""
 
     def __init__(self, ckpt_path: str, run_dir: str, *, dtype: str | None = None,
-                 static_knn: bool = False, pallas_knn: bool = False,
-                 pallas_attn: bool = False, octattn_coder: str = "rans",
-                 octattn_fused: bool = True, octrans_cap: int = DEFAULT_CAP, device=None):
+                 ehem_mode: str | None = None, static_knn: bool = False,
+                 pallas_knn: bool = False, pallas_attn: bool = False,
+                 octattn_coder: str = "rans", octattn_fused: bool = True,
+                 octrans_cap: int = DEFAULT_CAP, device=None):
+        """`ehem_mode` is EHEM's coding mode (one of MODES; rans when
+        None); an OctAttention run refuses it."""
         self.cfg = load_run_config(run_dir)
         self.is_ehem = str(self.cfg.model.class_name).upper().startswith("EHEM")
+        if not self.is_ehem and ehem_mode is not None:
+            raise ValueError("--ehem-mode is EHEM's coding mode; an OctAttention run picks "
+                             "its schedule with --incremental / --octattn-coder")
         # EHEM codes in bf16 by default, OctAttention in f32 (scp_tpu's
         # SCP_CODEC_DTYPE defaults)
         dtype = dtype or ("bf16" if self.is_ehem else "f32")
@@ -132,7 +130,8 @@ class CodecSession:
         self.model = build_model(self.cfg, DTYPES[dtype], device=self.device, **switches)
         load_weights(self.model, ckpt_path)
         if self.is_ehem:
-            self.codec = EHEMCodec(self.model, self.cfg.model.context_size)
+            self.codec = EHEMCodec(self.model, self.cfg.model.context_size,
+                                   mode=ehem_mode or "rans")
         else:
             self.codec = OctAttentionCodec(self.model, mode=octattn_coder, fused=octattn_fused,
                                            stream_cap=octrans_cap)
@@ -333,11 +332,11 @@ class CodecSession:
         normals_dir="",
     ) -> dict:
         """`sequential`, `incremental` and `level_wise` pick OctAttention's
-        schedule; an EHEM run codes level by level in rans mode and refuses
-        the first two (they would be ignored)."""
+        schedule; an EHEM run codes level by level in its coding mode and
+        refuses the first two (they would be ignored)."""
         if self.is_ehem and (sequential or incremental):
             raise ValueError("--sequential and --incremental are OctAttention schedules; an "
-                             "EHEM run codes in rans mode")
+                             "EHEM run codes level by level (see --ehem-mode)")
         self.timings = {}
         results, metrics = self.preproc(
             ori_file, data_type, lidar_level, system, preproc_path, mullevel,
@@ -381,7 +380,7 @@ class CodecSession:
             sub_sizes.append(occ.shape[0])
             mms.append(np.zeros((ml, 2), np.int64))
             lvl_sizes.append(_level_counts(ctx, ml))
-        payload, bits, n_sym = finish_stream(enc)
+        payload, bits, n_sym = EHEMCodec.finish_stream(enc)
         elapsed = time.perf_counter() - t
         t = self._tick("model_coder", t)
 
@@ -464,9 +463,11 @@ class CodecSession:
             )
         mode = header.coding_mode
         if self.is_ehem and mode != self.codec.mode:
-            raise NotImplementedError(
-                f"bitstream coded in mode {mode!r}: the port decodes EHEM 'rans' streams "
-                "only; the staged and full modes are still to port (ROADMAP.md)")
+            if mode not in MODES:
+                raise ValueError(f"bitstream coded in mode {mode!r}, which is no EHEM coding "
+                                 f"mode {MODES}")
+            # the header names the coding mode (scp_tpu/cli/codec_common.py:422-431)
+            self.codec = EHEMCodec(self.model, self.cfg.model.context_size, mode=mode)
         if not self.is_ehem and mode not in ("rans", "incr", "full"):
             raise ValueError(f"bitstream coded in mode {mode!r}, which is no OctAttention "
                              "schedule ('rans', 'incr' or 'full')")

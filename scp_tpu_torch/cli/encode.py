@@ -19,12 +19,18 @@ header) and reports bpp / bits-per-node / PSNR / Chamfer / model seconds,
 appending the aggregate of a glob to test_results_same_<type>_<level>.txt
 in the working directory (reference encode.py:293-305).
 
-Runs on the card unless given `--device cpu`.  `--dtype`, `--static-knn`,
-`--pallas-knn`, `--pallas-attn`, `--octattn-coder`, `--octattn-steps` and
-`--octrans-cap` stand for scp_tpu's SCP_CODEC_DTYPE, SCP_STATIC_KNN,
-SCP_PALLAS_KNN, SCP_PALLAS_ATTN, SCP_OCTATTN_CODER, SCP_OCTATTN_FUSED=0
-and SCP_OCTRANS_CAP; the decoder must be given the same ones (the stream's
-stamp names them).
+An EHEM run codes in `--ehem-mode rans` (the device rANS coder, the
+default), `staged` (two 16-way nibble stages on the host coder) or `full`
+(one 256-entry row per node on the host coder); the header names the
+mode, and the decoder follows it.
+
+Runs on the card unless given `--device cpu`.  `--dtype`, `--ehem-mode`,
+`--static-knn`, `--pallas-knn`, `--pallas-attn`, `--octattn-coder`,
+`--octattn-steps` and `--octrans-cap` stand for scp_tpu's
+SCP_CODEC_DTYPE, SCP_CODEC_MODE, SCP_STATIC_KNN, SCP_PALLAS_KNN,
+SCP_PALLAS_ATTN, SCP_OCTATTN_CODER, SCP_OCTATTN_FUSED=0 and
+SCP_OCTRANS_CAP; the decoder must be given the same ones except the mode
+(the stream's stamp names them).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import os
 
 import numpy as np
 
+from scp_tpu_torch.codec.ehem_codec import MODES as EHEM_MODES
 from scp_tpu_torch.codec.octattn_rans import DEFAULT_CAP
 
 
@@ -45,6 +52,10 @@ def add_session_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--dtype", type=str, default=None, choices=["bf16", "f32"],
                     help="compute dtype of the model (SCP_CODEC_DTYPE; default bf16 for "
                     "EHEM, f32 for OctAttention)")
+    ap.add_argument("--ehem-mode", type=str, default=None, choices=list(EHEM_MODES),
+                    help="EHEM's coding mode: device rANS, staged nibbles or full rows on "
+                    "the host coder (SCP_CODEC_MODE; default rans; decode reads it from "
+                    "the header)")
     ap.add_argument("--static-knn", action="store_true",
                     help="reuse the position graph in every EdgeConv (SCP_STATIC_KNN)")
     ap.add_argument("--pallas-knn", action="store_true",
@@ -62,8 +73,9 @@ def add_session_args(ap: argparse.ArgumentParser) -> None:
 
 
 def session_kwargs(args) -> dict:
-    return dict(dtype=args.dtype, static_knn=args.static_knn, pallas_knn=args.pallas_knn,
-                pallas_attn=args.pallas_attn, octattn_coder=args.octattn_coder,
+    return dict(dtype=args.dtype, ehem_mode=args.ehem_mode, static_knn=args.static_knn,
+                pallas_knn=args.pallas_knn, pallas_attn=args.pallas_attn,
+                octattn_coder=args.octattn_coder,
                 octattn_fused=not args.octattn_steps, octrans_cap=args.octrans_cap,
                 device=args.device)
 

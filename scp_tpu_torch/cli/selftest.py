@@ -2,13 +2,14 @@
 decode -> assert (the twin of scp_tpu/cli/selftest.py).
 
     python -m scp_tpu_torch.cli.selftest [--model ehem|octattn] [--device cpu]
-        [--points N] [--system spher]
+        [--points N] [--system spher] [--ehem-mode rans|staged|full]
 
 Runs on the card unless given `--device cpu`.  Exercises preprocessing,
-the octree build, the codec (EHEM: device rANS; OctAttention: the window
-schedule on the native host coder) and the decode-time ground-truth
-assert, on a narrow model with weights drawn from a seed.  Exit code 0 ==
-lossless.
+the octree build, the codec (EHEM: device rANS, or the staged / full
+modes on the native host coder under `--ehem-mode`, scp_tpu's
+SCP_CODEC_MODE; OctAttention: the window schedule on the native host
+coder) and the decode-time ground-truth assert, on a narrow model with
+weights drawn from a seed.  Exit code 0 == lossless.
 """
 
 from __future__ import annotations
@@ -25,7 +26,11 @@ def main(argv=None):
     ap.add_argument("--system", default="spher", choices=["cart", "spher", "cylin"])
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default cuda; cpu runs the plain PyTorch path)")
+    ap.add_argument("--ehem-mode", type=str, default=None, choices=["rans", "staged", "full"],
+                    help="EHEM's coding mode (SCP_CODEC_MODE; default rans)")
     args = ap.parse_args(argv)
+    if args.ehem_mode is not None and args.model != "ehem":
+        ap.error("--ehem-mode is EHEM's coding mode")
 
     import numpy as np
     import torch
@@ -60,7 +65,7 @@ def main(argv=None):
             self_depths=(2, 2), cross_depths=(1,), embed_dim=64, num_heads=2,
             window_size=16, mlp_ratio=2.0, knn_k=4, device=args.device,
         )
-        codec = EHEMCodec(model, context_size=64)
+        codec = EHEMCodec(model, context_size=64, mode=args.ehem_mode or "rans")
         angular = args.system != "cart"
         slices = split_levels(ctx, angular=angular)
         stream, bits, _ = codec.encode_to_stream(slices)
@@ -92,7 +97,8 @@ def main(argv=None):
     if rec.shape != res.recon_points.shape:
         raise AssertionError(f"reconstruction {rec.shape} != {res.recon_points.shape}")
     print(
-        f"LOSSLESS ROUNDTRIP OK  model={args.model} device={model.device} "
+        f"LOSSLESS ROUNDTRIP OK  model={args.model}"
+        f"{'' if args.model != 'ehem' else ' mode=' + codec.mode} device={model.device} "
         f"bpp={bits / n:.3f} bits/node={bits / len(occ_stream):.3f} "
         f"wall={time.time() - t0:.1f}s"
     )

@@ -1,2 +1,3 @@
-"""Codec layer of the port: slicing, stream container, device rANS and
-the EHEM wavefront codec (rans mode)."""
+"""Codec layer of the port: slicing, stream container, device rANS, the
+staged CDF factorization, and the EHEM (rans, staged, full) and
+OctAttention codecs."""

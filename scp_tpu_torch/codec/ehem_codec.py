@@ -1,23 +1,37 @@
-"""EHEM wavefront codec, device-rANS mode (port of
-scp_tpu/codec/ehem_codec.py, mode "rans").
+"""EHEM wavefront codec (port of scp_tpu/codec/ehem_codec.py), in its
+three stream modes.
 
 Coding order is level-major: per octree level all group-1 (even) symbols
 in chunk order, then all group-2 (odd) symbols.  Full context chunks ride
-the batch axis of one phase call (the call plan), the quantized CDF rows
-stay on the device and feed the device rANS coder, and contexts and
-positions are derived level by level on the device by the same expansion
-on both sides, so encoder and decoder run the phase programs on identical
-inputs and their CDF rows agree bit for bit.
+the batch axis of one phase call, and encoder and decoder run the phase
+calls on identical inputs, so their CDF rows agree bit for bit.
+
+  * "rans" (default): the device rANS coder (codec/rans.py).  The
+    quantized CDF rows stay on the device; contexts and positions are
+    derived level by level on the device by the same expansion on both
+    sides (the call plan `_call_plan`).
+  * "staged": each 255-way symbol is coded as two 16-way nibble stages
+    with exact conditionals (codec/staged.py) on the host arithmetic
+    coder (scp_tpu_torch/ac).  The encoder fetches the 8-byte coding
+    intervals per node, the decoder two 17-entry rows.  Stream order per
+    level: evens-hi, evens-lo, odds-hi, odds-lo (chunk order within each).
+  * "full": one 256-entry CDF row per node on the host coder.  Stream
+    order per level: evens, then odds, in chunk order.
+
+The staged and full modes pack contexts on the host (uint8 channels,
+uint16 positions), chunk by chunk in calls of three shapes
+(`_phase1_level`), and run every level through the model; their decoder
+expands the tree on the host.  Encoder and decoder call the same phase
+functions on tensors of one shape and layout.
 
 The stream is stamped with the port's own backend and coding params:
 the port's float math (its kernels, exact top-k) differs from the TPU's,
 so neither package decodes the other's streams; the two are compared at
-the level of logits, CDF rows, rANS bytes and bpp.
+the level of logits, CDF rows, coder bytes and bpp.
 
 Several `encode_into` calls on one encoder write one stream that `decode`
-reads back subtree by subtree (the multi-level CLI path).  The staged and
-full stream modes and multi-device coding are not ported yet
-(ROADMAP.md).
+reads back subtree by subtree (the multi-level CLI path), in every mode.
+Multi-device coding is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,9 +41,13 @@ import time
 import numpy as np
 import torch
 
+from scp_tpu_torch import ac
 from scp_tpu_torch.codec import rans
-from scp_tpu_torch.codec.slices import LevelSlices
+from scp_tpu_torch.codec.slices import LevelSlices, normalize_positions, pad_rows, split_levels
+from scp_tpu_torch.codec.staged import gather_cond_rows, intervals, staged_cdfs
+from scp_tpu_torch.core.octree import occupancy_to_child_octants
 from scp_tpu_torch.models.ehem import EHEM
+from scp_tpu_torch.utils.profiling import StageTimers
 
 # the attention numerics stamped in coding_params
 ATTN_NUMERICS = "normalized"
@@ -38,6 +56,7 @@ ATTN_NUMERICS = "normalized"
 # order than the WMMA kernel before them
 GEMM_NUMERICS = "sm90"
 BACKEND = "torch-cuda"  # stream stamp of the port (the CPU path stamps torch-cpu)
+MODES = ("rans", "staged", "full")
 
 
 def logits_to_cdf(logits: torch.Tensor) -> torch.Tensor:
@@ -212,22 +231,21 @@ def _emit_flat(out, flat, off: int, n: int):
 
 
 class EHEMCodec:
-    """EHEM wavefront codec over the port's model, device-rANS mode."""
+    """EHEM wavefront codec over the port's model; `mode` is one of MODES
+    (scp_tpu's SCP_CODEC_MODE)."""
 
-    TINY_UNIFORM_MAX = 512  # levels this small use a fixed uniform prior
+    TINY_UNIFORM_MAX = 512  # rans mode: levels this small use a fixed uniform prior
     GROUP_SIZE = 16  # full chunks per grouped phase call (scp_tpu's default)
 
     def __init__(self, model: EHEM, context_size: int = 8192, mode: str = "rans"):
-        if mode != "rans":
-            raise NotImplementedError(
-                f"EHEM coding mode {mode!r}: the port codes in 'rans' mode only; the "
-                "staged and full modes (host arithmetic coder) are still to port "
-                "(ROADMAP.md, queue 1)")
+        if mode not in MODES:
+            raise ValueError(f"EHEM coding mode must be one of {MODES}, got {mode!r}")
         self.mode = mode
         self.model = model
         self.device = model.device
         self.context_size = context_size
         self._uni_rows = None
+        self.timers = StageTimers()
 
     # ---- static plumbing --------------------------------------------------
 
@@ -302,23 +320,32 @@ class EHEMCodec:
 
     @property
     def ac_symbols_per_node(self) -> int:
-        """Coder steps per occupancy symbol (one in rans mode)."""
-        return 1
+        """Coder steps per occupancy symbol (two nibble stages when staged)."""
+        return 2 if self.mode == "staged" else 1
+
+    # ---- stream coder construction (mode-aware) ---------------------------
 
     def new_stream_encoder(self):
-        return rans.RansEncoder(self.device)
+        if self.mode == "rans":
+            return rans.RansEncoder(self.device)
+        return ac.StreamingEncoder()
 
     @staticmethod
     def finish_stream(enc):
-        """-> (payload bytes, bit count, n_sym for the header)."""
+        """-> (payload bytes, bit count, n_sym for the header) of a device
+        rANS encoder (EHEM's or OctAttention's) or a host coder."""
+        if isinstance(enc, ac.StreamingEncoder):
+            n_sym = enc.n_sym
+            payload, bits = enc.finish()
+            return payload, bits, n_sym
         payload = enc.finish()
         return payload, len(payload) * 8, enc.n_symbols
 
     def new_stream_decoder(self, payload: bytes, n_sym: int, *,
                            coding_params: str | None = None):
-        """Decoder over a stream's payload, scp_tpu's `(payload, n_sym)`
-        (the rANS decoder reads its symbol counts from the level sizes, so
-        `n_sym` only sizes the host coder of the modes not ported).
+        """Decoder over a stream's payload, scp_tpu's `(payload, n_sym)`:
+        the host coder's symbol count (coder steps) in the staged and full
+        modes; the rANS decoder reads its counts from the level sizes.
         `coding_params` is the stamp the stream was written with (its
         header's); a stream stamped with other settings is refused, since
         its CDF rows would not match."""
@@ -327,7 +354,9 @@ class EHEMCodec:
                 f"stream coded with {coding_params!r}, but this codec runs "
                 f"{self.coding_params()!r}"
             )
-        return rans.RansDecoder(payload, self.device)
+        if self.mode == "rans":
+            return rans.RansDecoder(payload, self.device)
+        return ac.ArithmeticDecoder(payload, n_sym)
 
     def _uniform_rows(self):
         if self._uni_rows is None:
@@ -372,6 +401,144 @@ class EHEMCodec:
             flat = torch.cat([flat, pad])
         return flat
 
+    # ---- the staged / full phase calls (host-packed chunks) ----------------
+
+    # Host -> device payload: the context channels (level, octant,
+    # occupancy incl. the 255 pad token) fit uint8 and the positions,
+    # normalized to [0, 1], are quantized to uint16.  Encoder and decoder
+    # share the packing and the unpacking in the phase calls, so the
+    # model's float inputs are identical on both sides.
+
+    @staticmethod
+    def _pack_data(d: np.ndarray) -> np.ndarray:
+        return d.astype(np.uint8)
+
+    @staticmethod
+    def _pack_pos(p: np.ndarray) -> np.ndarray:
+        return np.round(np.clip(p, 0.0, 1.0) * 65535.0).astype(np.uint16)
+
+    def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
+        """Upload a host array (uint16 travels as its int16 bit pattern)."""
+        if arr.dtype == np.uint16:
+            arr = arr.view(np.int16)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    @staticmethod
+    def _host_u16(t: torch.Tensor) -> np.ndarray:
+        """Fetch int32 rows of uint16 values as a uint16 array (2 B per
+        entry over the link)."""
+        t16 = torch.where(t >= 32768, t - 65536, t).to(torch.int16)
+        return t16.cpu().numpy().view(np.uint16)
+
+    def _phase1_call(self, db: torch.Tensor, pb: torch.Tensor):
+        """One phase-1 call on packed chunks: db (lanes, b, 4, 3) uint8,
+        pb (lanes, b, 3) uint16 bits -> (CDF outputs, f1, f2).  Positions
+        become f32 x (1/65535), as `_phase1` computes them."""
+        d = db.to(torch.int32)
+        p = (pb.to(torch.int32) & 0xFFFF).to(torch.float32)
+        p = p * torch.tensor(np.float32(1.0 / 65535.0))
+        logits1, f1, f2 = self.model.decode_phase1(d, p)
+        if self.mode == "staged":
+            return staged_cdfs(logits1), f1, f2
+        return (logits_to_cdf(logits1),), f1, f2
+
+    def _phase2_call(self, f1, f2, occ1: torch.Tensor):
+        """Phase 2 from the call's features and its group-1 symbols (uint8,
+        255 past the chunk) -> (hi, cond) when staged, else the rows."""
+        logits2 = self.model.decode_phase2(f1, f2, occ1.to(torch.int64), False)
+        if self.mode == "staged":
+            return staged_cdfs(logits2)
+        return logits_to_cdf(logits2)
+
+    def _level_chunks(self, n: int):
+        """Split one level of n nodes into chunk ranges [(start, m), ...]."""
+        csz = self.context_size
+        return [(s, min(csz, n - s)) for s in range(0, n, csz)]
+
+    def _phase1_level(self, d: np.ndarray, pos: np.ndarray):
+        """Phase 1 for every chunk of a level -> [(chunk_list, outs, f1,
+        f2, bucket)] in chunk order; outs is the mode's CDF tuple.
+
+        Every call is one of three shapes: (group, csz) for grouped full
+        chunks, (1, csz) for leftover full chunks and large partials,
+        (1, csz / 8) for small ones."""
+        csz = self.context_size
+        chunks = self._level_chunks(d.shape[0])
+        full = [(s, m) for (s, m) in chunks if m == csz]
+        partial = [(s, m) for (s, m) in chunks if m < csz]
+        calls = []
+        g = self.GROUP_SIZE
+        with self.timers.stage("dispatch_p1"):
+            n_grouped = (len(full) // g) * g
+            for i in range(0, n_grouped, g):
+                batch = full[i : i + g]
+                db = self._pack_data(np.stack([d[s : s + m] for s, m in batch]))
+                pb = self._pack_pos(np.stack([pos[s : s + m] for s, m in batch]))
+                outs, f1, f2 = self._phase1_call(self._to_dev(db), self._to_dev(pb))
+                calls.append((batch, outs, f1, f2, csz))
+            for s, m in full[n_grouped:] + partial:
+                b = self._small_bucket if m <= self._small_bucket else csz
+                dp, pp = pad_rows(d[s : s + m], pos[s : s + m], b)
+                outs, f1, f2 = self._phase1_call(self._to_dev(self._pack_data(dp[None])),
+                                                 self._to_dev(self._pack_pos(pp[None])))
+                calls.append(([(s, m)], outs, f1, f2, b))
+        return calls
+
+    @staticmethod
+    def _group_syms(batch, occ, n_lanes: int, width: int, parity: int) -> np.ndarray:
+        """Per-chunk group symbols packed into a (n_lanes, width) uint8
+        array, padded with the 255 token."""
+        out = np.full((n_lanes, width), 255, np.uint8)
+        for bi, (s, m) in enumerate(batch):
+            sel = occ[s : s + m][parity::2]
+            out[bi, : sel.shape[0]] = sel
+        return out
+
+    @torch.no_grad()
+    def warmup(self, slices: LevelSlices) -> int:
+        """Run every phase shape this cloud uses once (outside a timed
+        run); returns the number of distinct phase shapes.  In rans mode
+        that is one encode + decode roundtrip.  Clears the timers."""
+        if self.mode == "rans":
+            plans, _, _ = self._plan_levels(slices.level_sizes)
+            shapes = {(la, w) for calls, _ in plans for _, la, w in calls}
+            stream, _, _ = self.encode_to_stream(slices)
+            dec = self.new_stream_decoder(stream, slices.occ_stream.shape[0])
+            self.decode(dec, slices.max_level, np.array(slices.pos_mm, np.int64),
+                        angular=slices.angular, level_sizes=slices.level_sizes)
+            self.timers.clear()
+            return len(shapes)
+
+        csz, g = self.context_size, self.GROUP_SIZE
+        shapes = set()
+        for n in slices.level_sizes:
+            n_full = n // csz
+            if n_full >= g:
+                shapes.add((g, csz))
+            if n_full % g:
+                shapes.add((1, csz))
+            rem = n % csz
+            if rem:
+                shapes.add((1, self._small_bucket if rem <= self._small_bucket else csz))
+        for bsz, bucket in sorted(shapes):
+            d = np.zeros((bsz, bucket, 4, 3), np.uint8)
+            d[:, :, :, 2] = 255
+            p = np.zeros((bsz, bucket, 3), np.uint16)
+            outs, f1, f2 = self._phase1_call(self._to_dev(d), self._to_dev(p))
+            occ = self._to_dev(np.full((bsz, (bucket + 1) // 2), 255, np.uint8))
+            outs2 = self._phase2_call(f1, f2, occ)
+            if self.mode == "staged":
+                (hi1, cond1), (hi2, cond2) = outs, outs2
+                fetch = (intervals(hi1, cond1, occ), intervals(hi2, cond2, occ[:, : bucket // 2]),
+                         hi1, hi2, gather_cond_rows(cond1, torch.zeros_like(occ)),
+                         gather_cond_rows(cond2, torch.zeros_like(occ[:, : bucket // 2])))
+            else:
+                fetch = (outs[0], outs2)
+            for x in fetch:
+                self._host_u16(x)
+        self.timers.clear()
+        return len(shapes)
+
     # ---- encode -----------------------------------------------------------
 
     @torch.no_grad()
@@ -380,18 +547,110 @@ class EHEMCodec:
         t0 = time.time()
         enc = self.new_stream_encoder()
         self.encode_into(enc, slices, lidar_clip)
-        stream, bits, _ = self.finish_stream(enc)
+        with self.timers.stage("finish_chain"):
+            stream, bits, _ = self.finish_stream(enc)
         return stream, bits, time.time() - t0
 
     @torch.no_grad()
     def encode_into(self, enc, slices: LevelSlices, lidar_clip=None) -> float:
         """Encode one sliced (sub)tree into an open stream encoder
         (ehem_codec.py:840); the multi-level driver feeds three subtrees
-        through one stream.  Returns the seconds spent; the bytes
-        materialize in finish_stream."""
+        through one stream.  Returns the seconds spent.
+
+        rans: the bytes materialize in finish_stream.  staged / full: the
+        device work of every level is dispatched first (encoding has no
+        sequential dependency), then the levels are fetched and coded in
+        stream order.  `lidar_clip` is already in the slices' level
+        channel there (split_levels)."""
         t0 = time.time()
-        self._encode_rans_device(enc, slices, lidar_clip)
+        if self.mode == "rans":
+            self._encode_rans_device(enc, slices, lidar_clip)
+        elif self.mode == "staged":
+            per_level = [self._encode_level_staged_dispatch(li, slices)
+                         for li in range(slices.num_levels)]
+            for iv_calls in per_level:
+                self._emit_level_staged(iv_calls, enc)
+        else:
+            per_level = [self._encode_level_full_dispatch(li, slices)
+                         for li in range(slices.num_levels)]
+            for chunks, calls, p2_calls, occ in per_level:
+                self._emit_level_full(chunks, calls, p2_calls, occ, enc)
         return time.time() - t0
+
+    # -- staged mode --
+
+    def _encode_level_staged_dispatch(self, li: int, slices: LevelSlices):
+        d = slices.data[li]
+        occ = d[:, -1, 2]
+        calls = self._phase1_level(d, slices.level_pos(li))
+        iv_calls = []
+        with self.timers.stage("dispatch_iv"):
+            for batch, (hi1, cond1), f1, f2, b in calls:
+                lanes = hi1.shape[0]
+                evens = self._to_dev(self._group_syms(batch, occ, lanes, (b + 1) // 2, 0))
+                odds = self._to_dev(self._group_syms(batch, occ, lanes, b // 2, 1))
+                iv1 = intervals(hi1, cond1, evens)
+                hi2, cond2 = self._phase2_call(f1, f2, evens)
+                iv_calls.append((batch, iv1, intervals(hi2, cond2, odds)))
+        return iv_calls
+
+    def _emit_level_staged(self, iv_calls, enc):
+        """Fetch the intervals and feed the coder in stream order:
+        evens-hi, evens-lo, odds-hi, odds-lo (chunk order within each)."""
+        ev, od = {}, {}
+        for batch, iv1, iv2 in iv_calls:
+            with self.timers.stage("fetch_iv"):
+                h1, h2 = self._host_u16(iv1), self._host_u16(iv2)
+            for bi, (s, m) in enumerate(batch):
+                ev[s] = h1[bi, : (m + 1) // 2]  # (ne, 2, 2)
+                od[s] = h2[bi, : m // 2]
+        starts = sorted(ev)
+        with self.timers.stage("ac_encode"):
+            enc.append_intervals(np.concatenate([ev[s][:, 0] for s in starts]))
+            enc.append_intervals(np.concatenate([ev[s][:, 1] for s in starts]))
+            od_list = [od[s] for s in starts if od[s].shape[0]]
+            if od_list:
+                enc.append_intervals(np.concatenate([o[:, 0] for o in od_list]))
+                enc.append_intervals(np.concatenate([o[:, 1] for o in od_list]))
+
+    # -- full mode --
+
+    def _encode_level_full_dispatch(self, li: int, slices: LevelSlices):
+        d = slices.data[li]
+        occ = d[:, -1, 2]
+        calls = self._phase1_level(d, slices.level_pos(li))
+        p2_calls = []
+        with self.timers.stage("dispatch_p2"):
+            for batch, _outs, f1, f2, b in calls:
+                evens = self._group_syms(batch, occ, f1.shape[0], (b + 1) // 2, 0)
+                p2_calls.append((batch, self._phase2_call(f1, f2, self._to_dev(evens))))
+        return self._level_chunks(d.shape[0]), calls, p2_calls, occ
+
+    def _emit_level_full(self, chunks, calls, p2_calls, occ, enc):
+        """Fetch one call's rows at a time; code evens, then odds, in chunk
+        order."""
+        rows = {}
+        for batch, (cdf1,), _f1, _f2, _b in calls:
+            with self.timers.stage("fetch_cdf"):
+                host = self._host_u16(cdf1)
+            for bi, (s, m) in enumerate(batch):
+                rows[s] = host[bi, : (m + 1) // 2]
+        with self.timers.stage("ac_encode"):
+            for s, m in chunks:
+                enc.append_quantized(rows[s], occ[s : s + m][0::2].astype(np.int16))
+        rows2 = {}
+        for batch, cdf2 in p2_calls:
+            with self.timers.stage("fetch_cdf"):
+                host = self._host_u16(cdf2)
+            for bi, (s, m) in enumerate(batch):
+                if m // 2:
+                    rows2[s] = host[bi, : m // 2]
+        with self.timers.stage("ac_encode"):
+            for s, m in chunks:
+                if m // 2:
+                    enc.append_quantized(rows2[s], occ[s : s + m][1::2].astype(np.int16))
+
+    # -- rans mode --
 
     def _encode_rans_device(self, enc, slices: LevelSlices, lidar_clip=None):
         """Device wavefront encode (ehem_codec.py:888): the occupancy byte
@@ -453,7 +712,12 @@ class EHEMCodec:
                ground_truth=None, level_sizes=None) -> np.ndarray:
         """Level-wavefront decode -> occupancies 0..254 in BFS order.
         level_sizes (from the stream header) fix every shape up front;
-        `ground_truth` enables the lossless check."""
+        `ground_truth` enables the lossless check.  The staged and full
+        modes decode level by level on the host loop, which derives every
+        shape from the decoded symbols (level_sizes unused)."""
+        if self.mode != "rans":
+            return self._decode_host_loop(dec, max_level, pos_mm, angular, lidar_clip,
+                                          ground_truth)
         if level_sizes is None:
             raise ValueError("rans decode needs the header's per-level node counts")
         gen = self.decode_steps(dec, max_level, pos_mm, angular, lidar_clip,
@@ -466,8 +730,11 @@ class EHEMCodec:
 
     def decode_steps(self, dec, max_level, pos_mm, angular, lidar_clip=None,
                      ground_truth=None, level_sizes=None):
-        """Generator yielding after each level's dispatch; its return value
-        (StopIteration.value) is the decoded codes (ehem_codec.py:1124)."""
+        """Generator yielding after each level's dispatch (rans mode); its
+        return value (StopIteration.value) is the decoded codes
+        (ehem_codec.py:1124)."""
+        if self.mode != "rans":
+            raise ValueError(f"decode_steps steps the rans wavefront, not mode {self.mode!r}")
         sizes = [int(s) for s in level_sizes]
         if len(sizes) != max_level:
             raise ValueError(f"{len(sizes)} level sizes for {max_level} levels")
@@ -537,3 +804,166 @@ class EHEMCodec:
                     f"got {int(codes[i])}, want {int(ground_truth[i])}"
                 )
         return codes
+
+    # ---- the staged / full host-loop decode ---------------------------------
+
+    def _decode_host_loop(self, dec, max_level, pos_mm, angular, lidar_clip, ground_truth):
+        """Level-wavefront decode on the host (ehem_codec.py:1057-1095):
+        per level, normalize the positions, clip the deepest level's level
+        channel, decode the level, expand the children on the host."""
+        # root context: 3 missing-ancestor rows + self (level 1, octant 1)
+        data = np.zeros((1, 4, 3), np.int32)
+        data[:, :, 2] = 255
+        data[0, 3] = (1, 1, 255)
+        pos_int = np.zeros((1, 3), np.int64)
+
+        codes: list[np.ndarray] = []
+        decoded = 0
+        for level in range(1, max_level + 1):
+            n = data.shape[0]
+            mm = tuple(pos_mm[level - 1]) if angular else (0, 0)
+            pos = normalize_positions(pos_int, mm, max_level, angular)
+            dc = data
+            if lidar_clip is not None and level == max_level:
+                # the deepest level's level channel only, as split_levels
+                # clips it at encode
+                dc = data.copy()
+                dc[:, :, 0] = np.minimum(dc[:, :, 0], lidar_clip)
+            if self.mode == "staged":
+                level_occ = self._decode_level_staged(dec, dc, pos)
+            else:
+                level_occ = self._decode_level_full(dec, dc, pos)
+            if ground_truth is not None:
+                want = np.asarray(ground_truth)[decoded : decoded + n]
+                if not (want == level_occ.astype(np.int16)).all():
+                    i = int(np.nonzero(want != level_occ.astype(np.int16))[0][0])
+                    raise AssertionError(
+                        f"decode mismatch at node {decoded + i} (level {level}): "
+                        f"got {int(level_occ[i])}, want {int(want[i])}")
+            decoded += n
+            codes.append(level_occ.astype(np.int16))
+            if level == max_level:
+                break
+            with self.timers.stage("expand"):
+                data, pos_int = _expand_children(data, pos_int, level_occ, level + 1, max_level)
+        return np.concatenate(codes)
+
+    @staticmethod
+    def _assemble(chunks, n: int, evens_by_chunk, odds_by_chunk) -> np.ndarray:
+        level_occ = np.empty(n, np.int32)
+        for s, m in chunks:
+            level_occ[s : s + m : 2] = evens_by_chunk[s]
+            if m // 2:
+                level_occ[s + 1 : s + m : 2] = odds_by_chunk[s]
+        return level_occ
+
+    def _decode_level_staged(self, dec, dc, pos) -> np.ndarray:
+        """Staged decode of one level (ehem_codec.py:1247).  Per parity:
+        fetch the hi rows -> coder -> upload hi and gather the conditional
+        rows on the device -> fetch -> coder.  The gathers of call k are
+        dispatched while the host decodes call k + 1's hi stage, and phase
+        2 of call k while it decodes call k + 1's lo stage."""
+        chunks = self._level_chunks(dc.shape[0])
+        calls = self._phase1_level(dc, pos)
+
+        def hi_stage(outs, count):
+            """Decode each call's hi stage; dispatch its row gather."""
+            staged = []
+            for batch, (hi_rows, cond) in outs:
+                with self.timers.stage("fetch_cdf"):
+                    host = self._host_u16(hi_rows)
+                hi_pad = np.zeros(host.shape[:2], np.uint8)
+                his = {}
+                with self.timers.stage("ac_decode"):
+                    for bi, (s, m) in enumerate(batch):
+                        if count(m):
+                            his[s] = dec.decode_batch_quantized(
+                                host[bi, : count(m)]).astype(np.int32)
+                            hi_pad[bi, : count(m)] = his[s]
+                with self.timers.stage("dispatch_gather"):
+                    staged.append((batch, his, gather_cond_rows(cond, self._to_dev(hi_pad))))
+            return staged
+
+        def lo_stage(batch, his, rows, count, syms):
+            """Decode one call's lo stage into syms; -> the call's symbols
+            padded with 255."""
+            with self.timers.stage("fetch_cdf"):
+                host = self._host_u16(rows)
+            pad = np.full(host.shape[:2], 255, np.uint8)
+            with self.timers.stage("ac_decode"):
+                for bi, (s, m) in enumerate(batch):
+                    if count(m):
+                        lo = dec.decode_batch_quantized(host[bi, : count(m)]).astype(np.int32)
+                        syms[s] = his[s] * 16 + lo
+                        pad[bi, : count(m)] = syms[s]
+            return pad
+
+        def n_even(m):
+            return (m + 1) // 2
+
+        def n_odd(m):
+            return m // 2
+
+        evens, p2_outs = {}, []
+        staged = hi_stage([(batch, outs) for batch, outs, _f1, _f2, _b in calls], n_even)
+        for (batch, his, rows), (_, _o, f1, f2, _b) in zip(staged, calls):
+            occ_pad = lo_stage(batch, his, rows, n_even, evens)
+            with self.timers.stage("dispatch_p2"):
+                p2_outs.append((batch, self._phase2_call(f1, f2, self._to_dev(occ_pad))))
+        odds = {}
+        for batch, his, rows in hi_stage(p2_outs, n_odd):
+            lo_stage(batch, his, rows, n_odd, odds)
+        return self._assemble(chunks, dc.shape[0], evens, odds)
+
+    def _decode_level_full(self, dec, dc, pos) -> np.ndarray:
+        """Full-mode decode of one level: one 256-entry row per node."""
+        chunks = self._level_chunks(dc.shape[0])
+        calls = self._phase1_level(dc, pos)
+        evens_by_chunk, p2_calls = {}, []
+        for batch, (cdf1,), f1, f2, b in calls:
+            with self.timers.stage("fetch_cdf"):
+                host = self._host_u16(cdf1)
+            occ = np.full((f1.shape[0], (b + 1) // 2), 255, np.uint8)
+            with self.timers.stage("ac_decode"):
+                for bi, (s, m) in enumerate(batch):
+                    e = dec.decode_batch_quantized(host[bi, : (m + 1) // 2]).astype(np.int32)
+                    evens_by_chunk[s] = e
+                    occ[bi, : e.shape[0]] = e
+            with self.timers.stage("dispatch_p2"):
+                p2_calls.append((batch, self._phase2_call(f1, f2, self._to_dev(occ))))
+        odds_by_chunk = {}
+        for batch, cdf2 in p2_calls:
+            with self.timers.stage("fetch_cdf"):
+                host = self._host_u16(cdf2)
+            with self.timers.stage("ac_decode"):
+                for bi, (s, m) in enumerate(batch):
+                    if m // 2:
+                        odds_by_chunk[s] = dec.decode_batch_quantized(
+                            host[bi, : m // 2]).astype(np.int32)
+        return self._assemble(chunks, dc.shape[0], evens_by_chunk, odds_by_chunk)
+
+
+def _expand_children(data, pos_int, level_occ, child_level: int, max_level: int):
+    """Host wavefront expansion (ehem_codec.py:1376): (n, 4, 3) contexts +
+    (n, 3) grid positions of a level and its occupancies -> the children's
+    (m, 4, 3) contexts (occupancy unknown) and (m, 3) positions."""
+    pidx, octant = occupancy_to_child_octants(level_occ + 1)
+    m = pidx.shape[0]
+    # ancestors shift up one slot; the parent's occupancy is now known
+    child_data = np.empty((m, 4, 3), np.int32)
+    child_data[:, 0:3] = data[pidx, 1:4]
+    child_data[:, 2, 2] = level_occ[pidx]
+    child_data[:, 3, 0] = child_level
+    child_data[:, 3, 1] = octant + 1
+    child_data[:, 3, 2] = 255
+    unit = np.int64(1) << np.int64(max_level - child_level + 1)
+    bits = np.stack([(octant >> 2) & 1, (octant >> 1) & 1, octant & 1], axis=1).astype(np.int64)
+    return child_data, pos_int[pidx] + bits * unit
+
+
+def encode_context_array(codec: EHEMCodec, ctx: np.ndarray, angular: bool,
+                         lidar_clip: int | None = None):
+    """Convenience: raw (N, 4, 6) shard -> (stream, bits, slices, seconds)."""
+    slices = split_levels(ctx, angular=angular, lidar_level_clip=lidar_clip)
+    stream, bits, elapsed = codec.encode_to_stream(slices, lidar_clip=lidar_clip)
+    return stream, bits, slices, elapsed

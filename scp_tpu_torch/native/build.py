@@ -1,7 +1,9 @@
 """g++ build of the port's native host library (the twin of
-scp_tpu/native/build.py, for the octree builder and the range coder).
+scp_tpu/native/build.py: the octree builder, the range coder and the
+KD-tree distortion metrics).
 
-`src/octree.cpp` and `src/ac.cpp` are compiled with scp_tpu's flags into
+`src/ac.cpp`, `src/octree.cpp` and `src/metrics.cpp` are compiled with
+scp_tpu's flags into
 `scp_tpu_torch/_build/`, named by a hash of the source and the flags, and
 loaded with ctypes (a plain C interface; no PyTorch headers).  Nothing runs
 at import time: the first `load_library()` builds.
@@ -24,7 +26,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "src")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("ac.cpp", "octree.cpp")
+SOURCES = ("ac.cpp", "octree.cpp", "metrics.cpp")
 CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-march=native", "-fopenmp"]
 
 _lock = threading.Lock()

@@ -5,8 +5,8 @@ scp_tpu/tools/gene_normals.py; reference data_preproc/gene_normals.py).
         --ori_dir 'data/kitti/sequences/test/*/velodyne/*.bin' \
         --out_dir data/kitti/test_norm [--parts i/N]
 
-PCA normals over k-NN neighbourhoods (scipy's KD-tree), oriented toward
-the sensor origin; each output .ply carries x,y,z,nx,ny,nz columns, the
+PCA normals over k-NN neighbourhoods (the native KD-tree of
+native/src/metrics.cpp), oriented toward the sensor origin; each output .ply carries x,y,z,nx,ny,nz columns, the
 format the codec CLI reads through `--normals_dir`.
 """
 

@@ -19,7 +19,9 @@ the coded symbols get a start or frequency 1-3 units of 65536 apart, 0.3
 ideal bits in 77,647), so the byte counts may differ by a byte or two.
 What the CLI adds to the codec is held exactly instead: its payload is
 byte for byte the port codec's in-process stream of the same slices.  The
-port's decoder refuses scp_tpu's stream, and its selftest passes.
+port's decoder refuses scp_tpu's stream, and its selftest passes.  EHEM's
+staged and full coding modes (`--ehem-mode`; scp_tpu's SCP_CODEC_MODE) are
+held the same way, with --mullevel and on shards of the port's test_gene.
 """
 
 import dataclasses
@@ -153,13 +155,14 @@ def _results_txt(path):
     return out
 
 
-def _run_both(tmp_path, monkeypatch, runs, files, extra, name):
-    """Encode `files` (a glob) with both CLIs into their own dirs; returns
-    {package: ([bin paths], results txt dict)}."""
+def _run_both(tmp_path, monkeypatch, runs, files, extra, name, port_extra=()):
+    """Encode `files` (a glob) with both CLIs into their own dirs (the port
+    also given `port_extra`); returns {package: ([bin paths], results txt
+    dict)}."""
     jck, tck, _, _ = runs
     out = {}
     for pkg, cli, ck, flags in (("jax", jencode_cli, jck, []),
-                                ("port", tencode_cli, tck, PORT_FLAGS)):
+                                ("port", tencode_cli, tck, [*PORT_FLAGS, *port_extra])):
         work = tmp_path / f"{name}_{pkg}"
         work.mkdir()
         monkeypatch.chdir(work)
@@ -235,10 +238,10 @@ def sessions(runs):
 
 def _decode_both(sessions, binfile_j, binfile_t, ori_file, lidar_level, mullevel, gt=None):
     """What scp_tpu's decode of its stream returns, and the port's decode
-    of its own.  scp_tpu's decoder is lossless (its own tests), so its
-    output is its grids' from_grid of its deoctree of the encoded
-    occupancies: computed so, with scp_tpu's numpy functions, from its
-    header and its preprocessing, without compiling its codec again."""
+    of its own (by sessions[1]).  scp_tpu's decoder is lossless (its own
+    tests), so its output is its grids' from_grid of its deoctree of the
+    encoded occupancies: computed so, with scp_tpu's numpy functions, from
+    its header and its preprocessing, without compiling its codec again."""
     from scp_tpu.core import deoctree as jdeoctree
 
     jheader, _ = junpack(_read(binfile_j))
@@ -317,22 +320,77 @@ def test_mullevel_encode_decode_matches_jax(tmp_path, monkeypatch, runs, session
     np.testing.assert_array_equal(tpts, jpts)
 
 
-def test_octattn_flags_and_runs_are_refused(runs, tmp_path):
-    """What the port still refuses: OctAttention's schedule flags on an EHEM
-    run (they would be ignored) and EHEM's staged and full coding modes."""
-    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
-
+def test_octattn_flags_and_runs_are_refused(runs, octattn_run, tmp_path):
+    """What the CLIs refuse: OctAttention's schedule flags on an EHEM run
+    (they would be ignored), and EHEM's --ehem-mode on an OctAttention run
+    (it picks its schedule with --incremental / --octattn-coder)."""
     _, tck, data, _ = runs
     for flag in ("--incremental", "--sequential"):
         with pytest.raises(ValueError, match="OctAttention"):
             tencode_cli.main(["--ckpt_path", tck, "--type", "kitti", "--spher", "--test_files",
                               os.path.join(data, "scan0.ply"), "--out_dir", str(tmp_path),
                               flag, *PORT_FLAGS])
-    tiny = TEHEM(self_depths=(2, 2), cross_depths=(1,), embed_dim=64, num_heads=2,
-                 window_size=16, mlp_ratio=2.0, knn_k=4, device="cpu")
-    for mode in ("staged", "full"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EHEMCodec(tiny, context_size=64, mode=mode)
+    ck, ply, _, _ = octattn_run
+    for mode in ("rans", "staged", "full"):
+        with pytest.raises(ValueError, match="--ehem-mode is EHEM's"):
+            tencode_cli.main(["--ckpt_path", ck, "--type", "kitti", "--spher", "--test_files",
+                              ply, "--out_dir", str(tmp_path), "--ehem-mode", mode,
+                              "--device", "cpu"])
+    with pytest.raises(ValueError, match="--ehem-mode is EHEM's"):
+        tdecode_cli.main(["--ckpt_path", ck, "--type", "kitti", "--test_files", ply,
+                          "--bin_dir", str(tmp_path), "--ehem-mode", "staged", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("mode, mullevel", [("staged", True), ("full", False)])
+def test_host_coder_modes_encode_decode_match_jax(tmp_path, monkeypatch, runs, sessions, mode,
+                                                  mullevel):
+    """--ehem-mode staged / full through both CLIs (scp_tpu's reads
+    SCP_CODEC_MODE): the header names the mode, the payload is the port
+    codec's in-process stream of the same slices, byte for byte, and its
+    bits are within RATE_RTOL of scp_tpu's.  A session started in rans
+    mode decodes it in the header's mode (lossless, the points scp_tpu's
+    decoder returns).  Without --mullevel the shards come from the port's
+    own tools.test_gene, which both CLIs read, and the decode CLI checks
+    the codes against them."""
+    from scp_tpu_torch.tools import test_gene as ttest_gene
+
+    jck, tck, data, _ = runs
+    monkeypatch.setenv("SCP_CODEC_MODE", mode)
+    extra = ["--lidar_level", "12"]
+    pre = str(tmp_path / "pre")
+    if mullevel:
+        extra.append("--mullevel")
+    else:
+        ttest_gene.main(["--type", "kitti", "--ori_dir", os.path.join(data, "scan1.ply"),
+                         "--out_dir", pre, "--spher", "--lidar_level", "12"])
+        extra += ["--preproc_path", pre + "/"]
+    out = _run_both(tmp_path, monkeypatch, runs, os.path.join(data, "scan1.*"), extra, mode,
+                    port_extra=["--ehem-mode", mode])
+    ((header, payload),) = _check_streams(out)
+    assert header.coding_mode == mode
+    assert len(header.subtree_sizes) == (3 if mullevel else 1)
+    run_dir = tencode_cli.resolve_run(tck)[0]
+    moded = CodecSession(tck, run_dir, dtype="f32", static_knn=True, ehem_mode=mode,
+                         device="cpu")
+    assert moded.codec.mode == mode
+    _check_in_process(moded, header, payload, os.path.join(data, "scan1.ply"), 12, mullevel)
+    assert header.n_sym == moded.codec.ac_symbols_per_node * sum(header.subtree_sizes)
+    _check_metrics(out, ("bpp", "chamfer_dist", "PSNR"))
+    rans_session = CodecSession(tck, run_dir, dtype="f32", static_knn=True, device="cpu")
+    gt = None
+    if not mullevel:
+        gt = np.load(os.path.join(pre, "seq00scan1.npy"))[:, -1, 0].astype(np.int16) - 1
+        (dec,) = tdecode_cli.main(["--ckpt_path", tck, "--type", "kitti", "--test_files",
+                                   os.path.join(data, "scan1.ply"), "--preproc_path", pre,
+                                   "--bin_dir", os.path.dirname(out["port"][0][0]),
+                                   *PORT_FLAGS])
+        quant = read_points(os.path.join(pre, "seq00scan1_quant.ply"))
+        np.testing.assert_allclose(np.sort(dec["points"].astype(np.float64), axis=0),
+                                   np.sort(quant.astype(np.float64), axis=0), atol=1e-4)
+    jpts, tpts = _decode_both((sessions[0], rans_session), out["jax"][0][0], out["port"][0][0],
+                              os.path.join(data, "scan1.ply"), 12, mullevel, gt)
+    assert rans_session.codec.mode == mode
+    np.testing.assert_array_equal(tpts, jpts)
 
 
 @pytest.fixture(scope="module")

@@ -4,7 +4,8 @@ positions normalize by 2^max_level, and a spherical roundtrip with the
 deepest level's level channel clipped (`lidar_clip`, what scp_tpu's CLI
 passes).  Both lossless, with the JAX codec's bits on the same cloud and
 weights.  The stream stamp's attention-numerics and GEMM fields are
-checked too."""
+checked too, and the host-coder modes (staged, full) on a cylindrical
+cloud."""
 
 import numpy as np
 import pytest
@@ -143,11 +144,33 @@ def test_cylindrical_roundtrip_lossless_with_jax_bits(monkeypatch, models):
 
 
 @pytest.mark.parametrize("mode", ["staged", "full"])
-def test_host_coder_modes_are_refused(models, mode):
-    """Only rans is ported: scp_tpu's staged and full modes (its host
-    arithmetic coder) raise instead of coding another stream format."""
-    _, _, tm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcodec.EHEMCodec(tm, context_size=CONTEXT, mode=mode)
-    codec = tcodec.EHEMCodec(tm, context_size=CONTEXT)
-    assert codec.mode == "rans" and codec.ac_symbols_per_node == 1
+def test_host_coder_modes_are_refused(monkeypatch, models, mode):
+    """The host-coder modes (scp_tpu's staged and full, on the arithmetic
+    coder) code a lossless cylindrical roundtrip with JAX's bits, with
+    their coder steps per node (2 / 1); what the codec refuses is a mode
+    that is none of rans, staged and full (ValueError)."""
+    monkeypatch.setenv("SCP_STATIC_KNN", "1")
+    monkeypatch.setenv("SCP_TPU_NO_NATIVE", "1")  # scp_tpu's coder on Python
+    jm, variables, tm = models
+    rng = np.random.default_rng(9)
+    n = 500
+    r, az, z = rng.uniform(2, 60, n), rng.uniform(0, 2 * np.pi, n), rng.uniform(-3, 1, n)
+    pts = np.stack([r * np.cos(az), r * np.sin(az), z], 1)
+    ctx = tpreprocess(pts, system="cylin", qs=60.0 / 255).context
+    sl = tsplit(ctx, angular=True)
+    codec = tcodec.EHEMCodec(tm, context_size=CONTEXT, mode=mode)
+    assert codec.mode == mode and codec.ac_symbols_per_node == {"staged": 2, "full": 1}[mode]
+    stream, bits, _ = codec.encode_to_stream(sl)
+    dec = codec.new_stream_decoder(stream, codec.ac_symbols_per_node * len(sl.occ_stream),
+                                   coding_params=codec.coding_params())
+    codes = codec.decode(dec, sl.max_level, np.array(sl.pos_mm, np.int64), angular=True,
+                         ground_truth=sl.occ_stream, level_sizes=sl.level_sizes)
+    np.testing.assert_array_equal(codes, sl.occ_stream)
+    jc = jcodec.EHEMCodec(jm, variables, context_size=CONTEXT, mode=mode)
+    _, jbits, _ = jc.encode_to_stream(jsplit(jpreprocess(pts, system="cylin",
+                                                         qs=60.0 / 255).context, angular=True))
+    print(f"bits: port {bits}, JAX {jbits}")
+    assert bits == jbits
+    for bad in ("Staged", "ac", ""):
+        with pytest.raises(ValueError, match="coding mode"):
+            tcodec.EHEMCodec(tm, context_size=CONTEXT, mode=bad)

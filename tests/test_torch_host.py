@@ -166,9 +166,14 @@ def test_metrics_and_normals_ply_match(tmp_path):
     a = _cloud(rng, 800)
     b = a + rng.normal(0, 0.05, a.shape)
     assert tmetrics.PEAKS == jmetrics.PEAKS
-    assert tmetrics.chamfer(a, b) == jmetrics.chamfer(a, b)
-    nt, nj = tmetrics.estimate_normals(a, k=8), jmetrics.estimate_normals(a, k=8)
+    # scp_tpu runs on scipy here: the port's scipy path equals it, and its
+    # native KD-tree (the default; its OpenMP sums run in another order)
+    # agrees within 1e-9 (tests/test_torch_metrics_native.py)
+    assert tmetrics.chamfer(a, b, native=False) == jmetrics.chamfer(a, b)
+    assert abs(tmetrics.chamfer(a, b) - jmetrics.chamfer(a, b)) <= 1e-9 * jmetrics.chamfer(a, b)
+    nt, nj = tmetrics.estimate_normals(a, k=8, native=False), jmetrics.estimate_normals(a, k=8)
     np.testing.assert_array_equal(nt, nj)
+    np.testing.assert_allclose(tmetrics.estimate_normals(a, k=8), nj, rtol=0, atol=1e-6)
     tnormals.write_ply_with_normals(str(tmp_path / "t.ply"), a, nt)
     jnormals.write_ply_with_normals(str(tmp_path / "j.ply"), a, nj)
     assert (tmp_path / "t.ply").read_bytes() == (tmp_path / "j.ply").read_bytes()
@@ -177,7 +182,9 @@ def test_metrics_and_normals_ply_match(tmp_path):
     np.testing.assert_array_equal(pt, pj)
     np.testing.assert_array_equal(ntr, njr)
     for normals in (None, ntr):
-        got = tmetrics.d1_d2_psnr(a, b, 59.7, normals=normals)
+        got = tmetrics.d1_d2_psnr(a, b, 59.7, normals=normals, native=False)
         want = jmetrics.d1_d2_psnr(a, b, 59.7, normals=normals)
         assert got == want
+        native = tmetrics.d1_d2_psnr(a, b, 59.7, normals=normals)
+        np.testing.assert_allclose(native, want, rtol=1e-9, atol=0)
     assert os.path.getsize(tmp_path / "t.ply") > 0

@@ -4,7 +4,8 @@ reader, the trainer, the codec CLI, the native octree builder and range
 coder, OctAttention's model and codec, the metrics and tools among them)
 and chip_smoke imports, a small CPU encode/decode runs, a tiny EHEM takes a
 training step and the codec selftest passes (`cli.selftest --device
-cpu`); chip_smoke.py refuses to report success without a card; no source
+cpu`, in rans and in staged mode), the native KD-tree metrics build and
+run; chip_smoke.py refuses to report success without a card; no source
 builds through torch.utils.cpp_extension (which needs ninja and PyTorch's
 headers)."""
 
@@ -52,7 +53,10 @@ for m in ("scp_tpu_torch.config", "scp_tpu_torch.train.data", "scp_tpu_torch.tra
           "scp_tpu_torch.models.octattention", "scp_tpu_torch.codec.octattn_rans",
           "scp_tpu_torch.codec.octattn_codec", "scp_tpu_torch.ac", "scp_tpu_torch.ac.py_coder",
           "scp_tpu_torch.native.ac_native", "scp_tpu_torch.tools.bench_octattn",
-          "scp_tpu_torch.tools.preprocess", "scp_tpu_torch.tools.multi_preproc"):
+          "scp_tpu_torch.tools.preprocess", "scp_tpu_torch.tools.multi_preproc",
+          "scp_tpu_torch.codec.staged", "scp_tpu_torch.utils.profiling",
+          "scp_tpu_torch.native.metrics_native", "scp_tpu_torch.tools.test_gene",
+          "scp_tpu_torch.tools.psnr_test"):
     assert m in mods, m
 
 from scp_tpu_torch.codec.ehem_codec import EHEMCodec
@@ -90,6 +94,9 @@ loss.backward()
 assert all(p.grad is not None for p in model.parameters())
 from scp_tpu_torch.cli import selftest
 assert selftest.main(["--device", "cpu"]) == 0
+assert selftest.main(["--device", "cpu", "--ehem-mode", "staged"]) == 0
+from scp_tpu_torch import metrics
+assert metrics.chamfer(pts, pts + 0.01) > 0
 assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 print("ISOLATED_OK", len(mods), bits)
 '''

@@ -100,8 +100,10 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
     bad = tmp_path / "src"
     bad.mkdir()
     (bad / "octree.cpp").write_text("this is not C++;\n")
-    # the library's other source (the range coder) as it is
-    shutil.copyfile(os.path.join(build.SRC_DIR, "ac.cpp"), bad / "ac.cpp")
+    # the library's other sources (the range coder, the metrics) as they are
+    for name in build.SOURCES:
+        if name != "octree.cpp":
+            shutil.copyfile(os.path.join(build.SRC_DIR, name), bad / name)
     monkeypatch.setattr(build, "SRC_DIR", str(bad))
     with pytest.raises(build.NativeBuildError, match="g.. failed"):
         build.load_library(str(tmp_path / "out"))
