@@ -145,6 +145,37 @@ Phases, each printed as it ends (any failure exits non-zero):
           KD-tree's D1, D2 and Chamfer against scipy's on the sweep and its
           quantized cloud within 1e-9 relative (both times printed); and
           phase 8's metrics stage ran on the native library (its time).
+ 12. data-parallel training and multi-device coding (train/distributed.py,
+     EHEMCodec(devices=...), tools/bench.py's pipeline,
+     tools/dryrun_multichip.py), with n = torch.cuda.device_count():
+     12a. the ranks: n over NCCL, one per card, or 2 over gloo on cuda:0
+          when n = 1 (and then a one-rank NCCL group on the card, one
+          all-reduce); phase 7's recipe (train_kitti_ehem.yaml, global
+          batch 8 x 8192, warm from the sknn npz) on two sweeps' shards:
+          the world's step against the one-rank step on the same global
+          batch, in f32 (loss within 1e-5 relative, every gradient leaf
+          within 1e-4 x max(1, its largest magnitude), statistics 1e-5)
+          and in bf16 (loss 1e-2, per-tensor gradient cosine >= 0.99,
+          statistics 1e-2); on every rank the same global loss, the same
+          updated parameters, the same BatchNorm statistics, and A, B and
+          C launched; OctAttention (train_kitti.yaml, 16 x 1024, dropout
+          0.1) the same way in f32; s/step at one rank and on each rank
+          (5 timed bf16 steps), the all-reduce's share, peak memory;
+     12b. the sharded codec over every card (cuda:0 twice when n = 1)
+          with phase 3's model on phase 4's slices: lossless, bpp within
+          0.1% of phase 4's, every phase call of every shard's replica
+          launched its kernels (A and B in phase 1, A and C in phase 2),
+          the stamp names the device count and a one-device decoder
+          refuses the stream; cold and warm walls beside phase 4's, and a
+          profiled warm roundtrip of each (wall, kernel ms per card);
+     12c. three sweeps (seeds 0-2) in flight through one codec
+          (tools/bench.py's pipeline_bench): lossless, each payload byte
+          for byte its serial encode; the wall beside three serial
+          roundtrips;
+     12d. tools/dryrun_multichip at max(n, 2): scp_tpu's two lines.
+     Any rank that fails, hangs past 600 s, or fails its process group's
+     setup fails the phase.  `--phase12-only` runs phases 0, 1, 3, 4 and
+     12 alone (a multi-card run of this phase; no kernel table).
 
 Phase 2 also holds A, B, C and E in f32 against their plain versions
 (atol = rtol = 1e-4), and times the attention core that B, C and E share
@@ -1496,7 +1527,7 @@ class PhaseCalls:
         need = {"p1": "AB", "p2": "AC"}
         bad = [c for c in self.calls if any(not c[2][k] for k in need[c[0]])]
         if not self.calls or bad:
-            raise AssertionError(f"phase 11 {tag}: phase calls without their kernels: {bad[:5]} "
+            raise AssertionError(f"{tag}: phase calls without their kernels: {bad[:5]} "
                                  f"of {len(self.calls)}")
         return {k: sum(1 for c in self.calls if c[0] == k) for k in ("p1", "p2")}
 
@@ -1547,7 +1578,7 @@ def host_modes_roundtrip(model, mode, slices, counted):
     launches = {k: fn.launches for k, fn in counted.items()}
     if codes.shape != slices.occ_stream.shape or not (codes == slices.occ_stream).all():
         raise AssertionError(f"phase 11a {mode}: decode is not lossless")
-    calls = pc.check(mode)
+    calls = pc.check(f"phase 11a {mode}")
     if launches["D"] or launches["E"]:
         raise AssertionError(f"phase 11a {mode}: D or E launched with their switches off")
     coder = codec.timers.totals.get("ac_decode", 0.0)
@@ -1745,7 +1776,338 @@ def host_modes_phase(model, counted, slices, p4, p8_metrics):
     return out
 
 
-def main() -> int:
+# ---- phase 12: data-parallel training and multi-device coding ----------------
+
+# the P-rank step against the one-rank step on the same global batches: f32
+# at tests/test_torch_train_step.py's limits (summation order: the
+# all-reduce's and cuBLAS's choice for a smaller M), bf16 at phase 7a's
+DP_LOSS_RTOL_F32 = 1e-5
+DP_GRAD_TOL_F32 = 1e-4  # x max(1, the leaf's largest magnitude)
+DP_STATS_TOL_F32 = 1e-5
+DP_STATS_TOL_BF16 = 1e-2  # x max(1, |statistic|): bf16 activations, other sum order
+DP_TIMED_STEPS = 5
+DP_JOIN_S = 600  # a rank that outlives this fails the phase
+
+
+def dp_world():
+    """(ranks, backend) of 12a: one rank per card over NCCL, or two ranks
+    on the one card over gloo (NCCL refuses two ranks on one card)."""
+    n = torch.cuda.device_count()
+    return (2, "gloo") if n == 1 else (n, "nccl")
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = float(a.norm()), float(b.norm())
+    return 1.0 if na == nb == 0.0 else float(a @ b) / max(na * nb, 1e-300)
+
+
+def dp_compare(name, one, ranks, f32: bool, kernels: str = "ABC") -> dict:
+    """The world's step against the one-rank step: loss, gradients, the
+    replicated update and the BatchNorm statistics on every rank; the
+    kernels `kernels` launched on every rank."""
+    losses = {r["loss"] for r in ranks}
+    if len(losses) != 1:
+        raise AssertionError(f"{name}: the ranks report different global losses {losses}")
+    loss = ranks[0]["loss"]
+    rtol = DP_LOSS_RTOL_F32 if f32 else LOSS_RTOL
+    if not (math.isfinite(loss) and abs(loss - one["loss"]) <= rtol * abs(one["loss"])):
+        raise AssertionError(f"{name}: loss {loss} on {len(ranks)} ranks vs {one['loss']}")
+    worst_err, worst_cos = 0.0, 1.0
+    for k, g in one["grads"].items():
+        got = ranks[0]["grads"][k]
+        if f32:
+            err = float((got - g).abs().max()) / max(1.0, float(g.abs().max()))
+            if err > DP_GRAD_TOL_F32 * 2:  # atol + rtol, both DP_GRAD_TOL_F32
+                raise AssertionError(f"{name}: gradient of {k} off by {err:.3g} (scaled)")
+            worst_err = max(worst_err, err)
+        else:
+            c = _cosine(got, g)
+            if c < GRAD_COSINE:
+                raise AssertionError(f"{name}: gradient cosine of {k} {c:.6f} < {GRAD_COSINE}")
+            worst_cos = min(worst_cos, c)
+    if len({r["params_sha256"] for r in ranks}) != 1:
+        raise AssertionError(f"{name}: the ranks' updated parameters differ")
+    stats_tol = DP_STATS_TOL_F32 if f32 else DP_STATS_TOL_BF16
+    worst_stat = 0.0
+    for k, b in one["buffers"].items():
+        for r in ranks:
+            if not torch.equal(r["buffers"][k], ranks[0]["buffers"][k]):
+                raise AssertionError(f"{name}: rank {r['rank']} holds other statistics {k}")
+        err = float((ranks[0]["buffers"][k] - b).abs().max()) / max(1.0, float(b.abs().max()))
+        if err > 2 * stats_tol:
+            raise AssertionError(f"{name}: statistics {k} off by {err:.3g} from one rank's")
+        worst_stat = max(worst_stat, err)
+    launches = [{k: r["launches"][k] for k in "ABCDE"} for r in ranks]
+    if any(not l[k] for l in launches for k in kernels):
+        raise AssertionError(f"{name}: kernels {kernels} must launch on every rank: {launches}")
+    say(f"  {name}: loss {loss:.6f} on {len(ranks)} ranks, {one['loss']:.6f} on one (rel "
+        f"{abs(loss - one['loss']) / abs(one['loss']):.3g}); "
+        + (f"largest scaled gradient error {worst_err:.3g}" if f32 else
+           f"lowest gradient cosine {worst_cos:.6f}")
+        + f"; parameters and statistics equal on every rank, the statistics {worst_stat:.3g} "
+        f"from one rank's; launches per "
+        f"rank A/B/C {[[l[k] for k in 'ABC'] for l in launches]}")
+    return dict(loss=loss, loss_one=one["loss"], worst_scaled_grad_err=worst_err,
+                worst_cosine=worst_cos, worst_stat_err=worst_stat,
+                rank_launches=launches, devices=[r["device"] for r in ranks])
+
+
+def _timing(res) -> dict:
+    t = res["timed"]
+    total = sum(t["split_s"].values())
+    return dict(median_s_per_step=t["median_s_per_step"],
+                allreduce_share=t["split_s"].get("allreduce", 0.0) / total,
+                shares={k: v / total for k, v in t["split_s"].items()},
+                peak_memory_gb=t["peak_memory_gb"])
+
+
+def nccl_probe(workdir) -> dict:
+    """A one-rank NCCL group on the one card: one all-reduce."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(workdir, 'nccl1')}",
+                            rank=0, world_size=1)
+    try:
+        x = torch.arange(4, dtype=torch.float32, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        if x.tolist() != [0.0, 1.0, 2.0, 3.0]:
+            raise AssertionError(f"one-rank NCCL all-reduce gave {x.tolist()}")
+        return {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_training_phase(workdir) -> dict:
+    """12a (see the module docstring)."""
+    from scp_tpu_torch.config import load_config
+    from scp_tpu_torch.tools import dryrun_multichip as dry
+    from scp_tpu_torch.tools.train_bench_ckpt import gen_shards, recipe_config
+    from scp_tpu_torch.train import distributed
+    from scp_tpu_torch.train.data import ShardDataset
+    from scp_tpu_torch.train.trainer import Trainer
+
+    world, backend = dp_world()
+    t0 = time.time()
+    out = {"world": world, "backend": backend}
+    if backend == "gloo":
+        out["nccl_one_rank"] = nccl_probe(workdir)
+    shard_dir = os.path.join(workdir, "shards")
+    gen_shards(shard_dir, 2, N_POINTS, LIDAR_LEVEL, seed_base=1000)
+    root = os.path.join(shard_dir, "*.npy")
+    cfg = recipe_config(shard_dir, 8, 8192, config_dir=os.path.join(HERE, "configs"))
+    cfg.train.load_pretrain = CKPT
+    trainer = Trainer(cfg, 1, device="cuda", static_knn=True)
+    trainer.init_state()  # warm from the sknn npz
+    state = os.path.join(workdir, "ehem.pt")
+    torch.save(trainer.model.state_dict(), state)
+    del trainer
+    gen = ShardDataset(root, 8192, 8, mode="ehem", seed=42).batches()
+    batches = [next(gen) for _ in range(1 + DP_TIMED_STEPS)]
+    plain = cfg.to_plain()
+    plain["train"]["load_pretrain"] = ""  # the state file carries the warm weights
+    ehem = dict(state=state, device="cuda", switches={"static_knn": True})
+    spec_bf16 = dict(ehem, cfg=plain, batches=batches)
+    spec_f32 = dict(ehem, cfg={**plain, "bf16": False}, batches=batches[:1])
+    ocfg = load_config("train_kitti.yaml", os.path.join(HERE, "configs"),
+                       ["train.dropout=0.1", "bf16=False", f"data.root={root}"])
+    otrainer = Trainer(ocfg, 1, device="cuda")
+    otrainer.init_state()
+    ostate = os.path.join(workdir, "octattn.pt")
+    torch.save(otrainer.model.state_dict(), ostate)
+    del otrainer
+    obatch = next(ShardDataset(root, 1024, 16, mode="octattn", seed=42).batches())
+    spec_oct = dict(cfg=ocfg.to_plain(), state=ostate, device="cuda", switches={},
+                    batches=[obatch])
+    torch.cuda.empty_cache()
+    say(f"  12a setup: {time.time() - t0:.2f} s, {world} ranks over {backend}")
+
+    t0 = time.time()
+    ones = [dry.step_worker(s) for s in (spec_f32, spec_bf16, spec_oct)]
+    torch.cuda.empty_cache()
+    out["one_rank_s"] = time.time() - t0
+    t0 = time.time()
+    ranks = distributed.run_workers(dry.steps_worker, world,
+                                    args=([spec_f32, spec_bf16, spec_oct],), backend=backend,
+                                    workdir=os.path.join(workdir, "rdzv"),
+                                    threads=max(1, (os.cpu_count() or 1) // world),
+                                    timeout_s=DP_JOIN_S)
+    out["world_s"] = time.time() - t0
+    names = ("ehem_f32", "ehem_bf16", "octattn_f32_dropout0.1")
+    for i, name in enumerate(names):
+        out[name] = dp_compare(f"12a {name}", ones[i], [r[i] for r in ranks],
+                               f32="f32" in name, kernels="" if "octattn" in name else "ABC")
+    out["one_rank"] = _timing(ones[1])
+    out["per_rank"] = [_timing(r[1]) for r in ranks]
+    say(f"  12a bf16 (8, 8192): {out['one_rank']['median_s_per_step']:.4f} s/step on one rank, "
+        + ", ".join(f"rank {i} {t['median_s_per_step']:.4f} s/step (all-reduce share "
+                    f"{t['allreduce_share']:.3f}, peak {t['peak_memory_gb']:.2f} GB)"
+                    for i, t in enumerate(out["per_rank"]))
+        + f"; one rank peak {out['one_rank']['peak_memory_gb']:.2f} GB; walls: one rank "
+        f"{out['one_rank_s']:.1f} s, the world {out['world_s']:.1f} s (spawn included)")
+    return out
+
+
+def profiled_roundtrip(codec, slices) -> dict:
+    """One warm encode + decode under torch.profiler (device activity
+    only, to keep its cost down): the wall and each card's kernel
+    milliseconds (the host's issue against the devices)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stream, _, _ = codec.encode_to_stream(slices)
+        dec = codec.new_stream_decoder(stream, len(slices.occ_stream),
+                                       coding_params=codec.coding_params())
+        codec.decode(dec, slices.max_level, np.array(slices.pos_mm, np.int64), angular=True,
+                     level_sizes=slices.level_sizes)
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.device_index] = busy.get(e.device_index, 0.0) + e.time_range.elapsed_us() / 1e3
+    return dict(wall_ms=wall_ms, kernel_ms_by_card={f"cuda:{k}": v for k, v in sorted(busy.items())},
+                idle_share_by_card={f"cuda:{k}": 1.0 - v / wall_ms for k, v in sorted(busy.items())})
+
+
+def sharded_codec_phase(model, counted, slices, p4) -> dict:
+    """12b (see the module docstring)."""
+    import contextlib
+
+    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+
+    n = torch.cuda.device_count()
+    devs = [f"cuda:{i}" for i in range(n)] if n > 1 else ["cuda:0", "cuda:0"]
+    codec = EHEMCodec(model, context_size=8192, devices=devs)
+    stamp = codec.coding_params()
+    if f"devices={len(devs)};" not in stamp:
+        raise AssertionError(f"12b: the stamp does not name the device count: {stamp}")
+    with contextlib.ExitStack() as stack:
+        pcs = [stack.enter_context(PhaseCalls(rep, counted)) for rep in codec.replicas]
+        cold = roundtrip(codec, slices, counted.values())
+        shards = []
+        for i, pc in enumerate(pcs):
+            calls = pc.check(f"phase 12b shard {i} ({devs[i]})")
+            shards.append(dict(device=devs[i], phase_calls=calls,
+                               launches={k: sum(c[2][k] for c in pc.calls) for k in "ABC"}))
+    warm = roundtrip(codec, slices, counted.values())
+    if abs(cold["bpp"] - p4["bpp"]) > BPP_RTOL * p4["bpp"]:
+        raise AssertionError(f"12b bpp {cold['bpp']} is not within {BPP_RTOL} of phase 4's")
+    if codec.last_devices != tuple(str(torch.device(d)) for d in devs):
+        raise AssertionError(f"12b: the last sharded call ran on {codec.last_devices}")
+    stream, _, _ = codec.encode_to_stream(slices)
+    try:
+        EHEMCodec(model, context_size=8192).new_stream_decoder(
+            stream, len(slices.occ_stream), coding_params=stamp)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("12b: a one-device decoder took the sharded stream")
+    one = EHEMCodec(model, context_size=8192)
+    p4_warm = roundtrip(one, slices, counted.values())
+    prof_one = profiled_roundtrip(one, slices)
+    prof_sharded = profiled_roundtrip(codec, slices)
+    say(f"  12b {len(devs)} shards {devs}: lossless, bpp={cold['bpp']:.4f} (phase 4 "
+        f"{p4['bpp']:.4f}), bytes={cold['bytes']}; cold encode {cold['encode_s']:.3f} s, decode "
+        f"{cold['decode_s']:.3f} s (phase 4 {p4['encode_s']:.3f} / {p4['decode_s']:.3f}); warm "
+        f"{warm['encode_s']:.3f} / {warm['decode_s']:.3f} s (one device warm "
+        f"{p4_warm['encode_s']:.3f} / {p4_warm['decode_s']:.3f}); per shard "
+        + ", ".join(f"{s['device']} {s['phase_calls']} A/B/C {[s['launches'][k] for k in 'ABC']}"
+                    for s in shards))
+    say(f"  12b profiled warm roundtrip: one device {prof_one['wall_ms']:.1f} ms wall, kernels "
+        f"{prof_one['kernel_ms_by_card']}; sharded {prof_sharded['wall_ms']:.1f} ms wall, kernels "
+        f"{prof_sharded['kernel_ms_by_card']}; a decoder of another device count refused the stream")
+    return dict(devices=devs, stamp=stamp, bpp=cold["bpp"], bytes=cold["bytes"],
+                cold=dict(encode_s=cold["encode_s"], decode_s=cold["decode_s"]),
+                warm=dict(encode_s=warm["encode_s"], decode_s=warm["decode_s"]),
+                one_device_warm=dict(encode_s=p4_warm["encode_s"], decode_s=p4_warm["decode_s"]),
+                shards=shards, launches=cold["launches"], profile_one=prof_one,
+                profile_sharded=prof_sharded)
+
+
+def pipeline_phase(model, slices) -> dict:
+    """12c (see the module docstring)."""
+    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+    from scp_tpu_torch.codec.slices import split_levels
+    from scp_tpu_torch.core.preprocess import kitti_qs, preprocess_points
+    from scp_tpu_torch.tools.bench import pipeline_bench
+
+    clouds = [slices] + [
+        split_levels(preprocess_points(synth_kitti(np.random.default_rng(s), N_POINTS),
+                                       system="spher", qs=kitti_qs(LIDAR_LEVEL)).context,
+                     angular=True) for s in (1, 2)]
+    codec = EHEMCodec(model, context_size=8192)
+    serial, serial_s = [], 0.0
+    for sl in clouds:
+        r = roundtrip(codec, sl, [])
+        serial_s += r["encode_s"] + r["decode_s"]
+        serial.append(codec.encode_to_stream(sl)[0])
+    pipeline_bench(codec, clouds)  # warm
+    wall, streams, _ = pipeline_bench(codec, clouds)
+    if streams != serial:
+        raise AssertionError("12c: a pipelined payload differs from its serial encode")
+    say(f"  12c: 3 sweeps (seeds 0-2) in flight: {wall:.3f} s, lossless, payloads equal to the "
+        f"serial encodes; three serial roundtrips {serial_s:.3f} s (x{serial_s / wall:.3f})")
+    return dict(clouds=3, wall_s=wall, serial_s=serial_s,
+                points_per_sec=3 * N_POINTS / wall, nodes=[len(c.occ_stream) for c in clouds])
+
+
+def multi_device_phase(model, counted, slices, p4) -> dict:
+    """Phase 12 (see the module docstring); returns its numbers."""
+    import io
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from scp_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+
+    work = tempfile.mkdtemp(prefix="scp_phase12_")
+    try:
+        out = {}
+        t0 = time.time()
+        out["12a"] = dp_training_phase(work)
+        say(f"  12a: {time.time() - t0:.2f} s")
+        t0 = time.time()
+        out["12b"] = sharded_codec_phase(model, counted, slices, p4)
+        say(f"  12b: {time.time() - t0:.2f} s")
+        t0 = time.time()
+        out["12c"] = pipeline_phase(model, slices)
+        say(f"  12c: {time.time() - t0:.2f} s")
+        t0 = time.time()
+        n = max(2, torch.cuda.device_count())
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            out["12d"] = dryrun_multichip(n, "cuda", workdir=os.path.join(work, "dry"),
+                                          timeout_s=DP_JOIN_S)
+        lines = buf.getvalue().strip().splitlines()
+        if len(lines) != 2 or not all(line.startswith(f"dryrun_multichip({n}): ")
+                                      for line in lines):
+            raise AssertionError(f"12d printed {lines}")
+        for line in lines:
+            say(f"  12d {line}")
+        say(f"  12d: {time.time() - t0:.2f} s")
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase12(model, counted, slices, p4) -> dict:
+    t0 = time.time()
+    p12 = multi_device_phase(model, counted, slices, p4)
+    say(f"phase 12 data-parallel training and multi-device coding: {time.time() - t0:.2f} s")
+    say(json.dumps({"multi_device": p12}))
+    return p12
+
+
+def main(argv=None) -> int:
+    """`--phase12-only`: phases 0, 1, 3 and 4 (phase 12's yardstick), then
+    phase 12, and no kernel table (a multi-card run of the new phase)."""
+    argv = sys.argv[1:] if argv is None else argv
+    only12 = "--phase12-only" in argv
     t_start = time.time()
     if not torch.cuda.is_available():
         say("chip_smoke: no CUDA device available; this smoke runs on the card only")
@@ -1789,6 +2151,20 @@ def main() -> int:
     n_nodes = int(slices.occ_stream.shape[0])
     say(f"preprocess: {time.time() - t0:.2f} s, {n_nodes} nodes, {slices.max_level} levels")
 
+    counted = {"A": mlp_ops.ln_mlp_residual, "B": swin_attn.attn_sublayer_self,
+               "C": swin_attn.attn_sublayer_cross, "D": knn_topk.knn_topk,
+               "E": window_attn.window_attention}
+    if only12:
+        p4 = roundtrip(EHEMCodec(model, context_size=8192), slices, counted.values())
+        say(f"phase 4 roundtrip: lossless, bpp={p4['bpp']:.4f}, encode {p4['encode_s']:.3f} s, "
+            f"decode {p4['decode_s']:.3f} s, kernel launches A/B/C/D/E = {p4['launches']}")
+        phase12(model, counted, slices, p4)
+        say(f"total wall {time.time() - t_start:.1f} s")
+        say(json.dumps({"ok": True, "phases": "0, 1, 3, 4, 12", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     # ---- 2. kernels vs plain
     t0 = time.time()
     gen = torch.Generator(device="cuda")
@@ -1821,9 +2197,6 @@ def main() -> int:
             f"max_abs_err {r['f32_max_abs_err']:.3g}")
 
     # ---- 4. the main path: one encode, one decode
-    counted = {"A": mlp_ops.ln_mlp_residual, "B": swin_attn.attn_sublayer_self,
-               "C": swin_attn.attn_sublayer_cross, "D": knn_topk.knn_topk,
-               "E": window_attn.window_attention}
     p4 = roundtrip(EHEMCodec(model, context_size=8192), slices, counted.values())
     say(f"phase 4 roundtrip: lossless, bpp={p4['bpp']:.4f}, nodes={n_nodes}, "
         f"bytes={p4['bytes']}, encode {p4['encode_s']:.3f} s, decode {p4['decode_s']:.3f} s, "
@@ -1938,6 +2311,10 @@ def main() -> int:
         for mode in ("staged", "full"):
             rows[k][f"{mode}_launches"] = p11[mode]["launches"][k]
     say(json.dumps({"host_modes": p11}))
+    p12 = phase12(model, counted, slices, p4)
+    for k in "ABCDE":
+        rows[k]["dp_rank_launches"] = [r[k] for r in p12["12a"]["ehem_bf16"]["rank_launches"]]
+        rows[k]["shard_launches"] = [s["launches"].get(k, 0) for s in p12["12b"]["shards"]]
     say(f"total wall {time.time() - t_start:.1f} s")
 
     for k, prefixes in (("A", ("mlp_sm90<",)), ("B", ("gemm_sm90<",)), ("C", ("gemm_sm90<",)),

@@ -31,11 +31,23 @@ the level of logits, CDF rows, coder bytes and bpp.
 
 Several `encode_into` calls on one encoder write one stream that `decode`
 reads back subtree by subtree (the multi-level CLI path), in every mode.
-Multi-device coding is not ported yet (ROADMAP.md).
+
+Multi-device coding (scp_tpu's EHEMCodec(mesh=...), rans mode only):
+`devices` lists the devices of the lane shards, such as ["cuda:0", ...,
+"cuda:3"] (a device may repeat).  The model is replicated on each, the
+call plan keeps leftover lane counts divisible by their number
+(`_call_plan(..., mesh_mult)`), and a grouped phase call whose lane count
+they divide runs one contiguous lane slice per device; its CDF rows are
+gathered to devices[0], where the expansion and the rANS coder run (the
+lane scan is sequential in the stream, as scp_tpu keeps it on one
+device).  A sharded call runs its slices with other batch sizes than the
+unsharded one, so its rows may differ in the last bit: the stamp names the
+device count, and a decoder with another count refuses the stream.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 
 import numpy as np
@@ -235,14 +247,31 @@ class EHEMCodec:
     (scp_tpu's SCP_CODEC_MODE)."""
 
     TINY_UNIFORM_MAX = 512  # rans mode: levels this small use a fixed uniform prior
-    GROUP_SIZE = 16  # full chunks per grouped phase call (scp_tpu's default)
 
-    def __init__(self, model: EHEM, context_size: int = 8192, mode: str = "rans"):
+    def __init__(self, model: EHEM, context_size: int = 8192, mode: str = "rans",
+                 group_size: int = 16, devices=None):
+        """group_size: full chunks per grouped phase call (scp_tpu's
+        default, 16).  devices: the lane shards' devices (module doc);
+        None codes on the model's device alone."""
         if mode not in MODES:
             raise ValueError(f"EHEM coding mode must be one of {MODES}, got {mode!r}")
+        devs = [model.device] if devices is None else [torch.device(d) for d in devices]
+        if not devs:
+            raise ValueError("devices: at least one device")
+        if len(devs) > 1 and mode != "rans":
+            raise ValueError(f"the sharded codec needs the device entropy coder (mode 'rans'), "
+                             f"got mode {mode!r}")
         self.mode = mode
-        self.model = model
-        self.device = model.device
+        self.group_size = int(group_size)
+        self.devices = devs
+        self.device = devs[0]
+        # one replica per shard (the same weights, the same kernels on each)
+        self.replicas = [model if i == 0 and model.device == d else copy.deepcopy(model).to(d)
+                         for i, d in enumerate(devs)]
+        self.model = self.replicas[0]
+        # the devices the last sharded phase call ran on (None until one
+        # ran): scp_tpu's last_rows_sharding
+        self.last_devices = None
         self.context_size = context_size
         self._uni_rows = None
         self.timers = StageTimers()
@@ -254,13 +283,14 @@ class EHEMCodec:
         return max(32, self.context_size // 8)
 
     def _plan_levels(self, level_sizes):
-        csz, g, small = self.context_size, self.GROUP_SIZE, self._small_bucket
+        csz, g, small = self.context_size, self.group_size, self._small_bucket
+        mm = len(self.devices) if len(self.devices) > 1 else 0
         plans = []
         for n in level_sizes:
             if n <= self.TINY_UNIFORM_MAX:
                 plans.append(([], n))
             else:
-                plans.append(_call_plan(n, csz, g, small))
+                plans.append(_call_plan(n, csz, g, small, mesh_mult=mm))
         b_cap = _pow2(max(p[1] for p in plans))
         e_cap = max(rans.CHUNK, b_cap // 2)
         return plans, b_cap, e_cap
@@ -298,12 +328,14 @@ class EHEMCodec:
         kernels rounded unnormalized weights, carry no such field.  `gemm`
         names the Swin sublayers' bf16 GEMM kernels (wgmma on Hopper): a
         card stream written by the WMMA kernels before them, whose sums
-        ran in another order, carries no such field and is refused."""
+        ran in another order, carries no such field and is refused.
+        `devices` is the lane-shard count (scp_tpu's `mesh=`)."""
         return (
-            f"group={self.GROUP_SIZE};"
+            f"group={self.group_size};"
             f"tiny={self.TINY_UNIFORM_MAX};"
             f"dtype={str(self.model.dtype).replace('torch.', '')};"
             f"plan=tailmerge;"
+            f"devices={len(self.devices)};"
             f"knn=exact;"
             f"staticknn={1 if self.model.static_knn else 0};"
             f"pallas_knn={1 if self.model.pallas_knn else 0};"
@@ -366,10 +398,11 @@ class EHEMCodec:
 
     # ---- the shared phase programs ----------------------------------------
 
-    def _phase1(self, data_buf, pos_buf, start, clip, lo, scale, lanes, width):
+    @staticmethod
+    def _phase1(model, data_buf, pos_buf, start, clip, lo, scale, lanes, width):
         """Slice a call's contexts from the level buffers, quantize the
-        positions (normalize -> u16 -> f32), run phase 1 and quantize its
-        CDF rows: (rows1 (lanes*(width+1)//2, 256), f1, f2)."""
+        positions (normalize -> u16 -> f32), run phase 1 of `model` and
+        quantize its CDF rows: (rows1 (lanes*(width+1)//2, 256), f1, f2)."""
         lw = lanes * width
         d = data_buf[start : start + lw].reshape(lanes, width, 4, 3)
         d = torch.cat([torch.clamp(d[..., :1], max=clip), d[..., 1:]], dim=-1)
@@ -379,13 +412,48 @@ class EHEMCodec:
         pu = torch.round(torch.clamp(pf, 0.0, 1.0) * torch.tensor(65535.0, dtype=f32))
         pq = pu.to(torch.int32).to(f32) * torch.tensor(np.float32(1.0 / 65535.0))
         pq = pq.reshape(lanes, width, 3)
-        logits1, f1, f2 = self.model.decode_phase1(d, pq)
+        logits1, f1, f2 = model.decode_phase1(d, pq)
         rows1 = logits_to_cdf(logits1)
         return rows1.reshape(lanes * ((width + 1) // 2), 256), f1, f2
 
-    def _phase2(self, f1, f2, occ):
-        rows = logits_to_cdf(self.model.decode_phase2(f1, f2, occ.to(torch.int64), False))
+    @staticmethod
+    def _phase2(model, f1, f2, occ):
+        rows = logits_to_cdf(model.decode_phase2(f1, f2, occ.to(torch.int64), False))
         return rows.reshape(-1, 256)
+
+    def _shards(self, lanes: int):
+        """[(replica, first lane, lane count)] of a phase call: one
+        contiguous lane slice per device when their number divides the
+        lanes (scp_tpu's _lane_sharded), else the call on devices[0]."""
+        n = len(self.replicas)
+        if n > 1 and lanes > 1 and lanes % n == 0:
+            per = lanes // n
+            return [(m, i * per, per) for i, m in enumerate(self.replicas)]
+        return [(self.model, 0, lanes)]
+
+    def _sharded_phase1(self, data_buf, pos_buf, start, clip, lo, scale, lanes, width):
+        """Phase 1 of one call of the plan, each lane slice on its device:
+        (rows1 on devices[0] in lane order, [(replica, f1, f2, first lane,
+        lanes)] for phase 2)."""
+        rows, parts = [], []
+        shards = self._shards(lanes)
+        for model, l0, nl in shards:
+            s, dev = start + l0 * width, model.device
+            rows1, f1, f2 = self._phase1(model, data_buf[s : s + nl * width].to(dev),
+                                         pos_buf[s : s + nl * width].to(dev), 0, clip, lo,
+                                         scale, nl, width)
+            rows.append(rows1.to(self.device))
+            parts.append((model, f1, f2, l0, nl))
+        if len(shards) > 1:
+            self.last_devices = tuple(str(m.device) for m, _, _ in shards)
+        return (torch.cat(rows) if len(rows) > 1 else rows[0]), parts
+
+    def _sharded_phase2(self, parts, occ):
+        """Phase 2 of one call from its phase-1 slices and its group-1
+        symbols occ (lanes, hw) on devices[0] -> rows2 on devices[0]."""
+        rows = [self._phase2(model, f1, f2, occ[l0 : l0 + nl].to(model.device)).to(self.device)
+                for model, f1, f2, l0, nl in parts]
+        return torch.cat(rows) if len(rows) > 1 else rows[0]
 
     @staticmethod
     def _cat_pad(parts, n: int):
@@ -467,7 +535,7 @@ class EHEMCodec:
         full = [(s, m) for (s, m) in chunks if m == csz]
         partial = [(s, m) for (s, m) in chunks if m < csz]
         calls = []
-        g = self.GROUP_SIZE
+        g = self.group_size
         with self.timers.stage("dispatch_p1"):
             n_grouped = (len(full) // g) * g
             for i in range(0, n_grouped, g):
@@ -509,7 +577,7 @@ class EHEMCodec:
             self.timers.clear()
             return len(shapes)
 
-        csz, g = self.context_size, self.GROUP_SIZE
+        csz, g = self.context_size, self.group_size
         shapes = set()
         for n in slices.level_sizes:
             n_full = n // csz
@@ -683,7 +751,7 @@ class EHEMCodec:
                 ne, no = (n + 1) // 2, n // 2
                 sf_e, sf_o = [], []
                 for s, lanes, width in calls:
-                    rows1, f1, f2 = self._phase1(
+                    rows1, parts = self._sharded_phase1(
                         data_buf, pos_buf, s, clip, lo, scale, lanes, width
                     )
                     lw = lanes * width
@@ -692,7 +760,7 @@ class EHEMCodec:
                     seg = torch.where(idx < off + n, seg, 255).reshape(lanes, width)
                     evens, odds = seg[:, 0::2], seg[:, 1::2]
                     sf_e.append(rans.gather_start_freq(rows1, evens.reshape(-1)))
-                    rows2 = self._phase2(f1, f2, evens)
+                    rows2 = self._sharded_phase2(parts, evens)
                     sf_o.append(rans.gather_start_freq(rows2, odds.reshape(-1)))
                 enc.append_group(self._cat_pad(sf_e, ne), ne)
                 if no:
@@ -766,19 +834,19 @@ class EHEMCodec:
             ne, no = (n + 1) // 2, n // 2
             p1_outs = []
             for s, lanes, width in calls:
-                rows1, f1, f2 = self._phase1(data_buf, pos_buf, s, clip, lo, scale,
-                                             lanes, width)
-                p1_outs.append((s, lanes, width, rows1, f1, f2))
+                rows1, parts = self._sharded_phase1(data_buf, pos_buf, s, clip, lo, scale,
+                                                    lanes, width)
+                p1_outs.append((s, lanes, width, rows1, parts))
             rows_e = self._cat_pad([o[3] for o in p1_outs], ne)
             evens_cap = _window(dec.decode_group(rows_e, ne), 0, e_cap)
 
             rows2 = []
-            for s, lanes, width, _rows1, f1, f2 in p1_outs:
+            for s, lanes, width, _rows1, parts in p1_outs:
                 hw = (width + 1) // 2
                 seg = _window(evens_cap, s // 2, lanes * hw).to(torch.int64)
                 idx = s // 2 + torch.arange(lanes * hw, device=self.device)
                 occ = torch.where(idx < ne, seg, 255).reshape(lanes, hw)
-                rows2.append(self._phase2(f1, f2, occ))
+                rows2.append(self._sharded_phase2(parts, occ))
             if no:
                 odds_cap = _window(dec.decode_group(self._cat_pad(rows2, no), no), 0, e_cap)
             else:

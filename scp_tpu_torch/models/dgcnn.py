@@ -20,15 +20,25 @@ from torch.utils.checkpoint import checkpoint
 from scp_tpu_torch.models.layers import MLP, Dense
 from scp_tpu_torch.ops.edgeconv_fused import edgeconv_train_fused
 from scp_tpu_torch.ops.knn import gather_neighbors, knn_indices, max_over_neighbors
+from scp_tpu_torch.train import distributed
 
 BN_MOMENTUM = 0.9  # flax nn.BatchNorm(momentum=0.9): ra = 0.9 ra + (1 - 0.9) batch
 
 
-def batch_stats(x32: torch.Tensor, dims):
+def batch_stats(x32: torch.Tensor, dims, global_batch: bool = False):
     """flax's _compute_stats (use_fast_variance): mean and the biased
-    variance E[x^2] - E[x]^2, clipped at 0, over `dims` of an f32 tensor."""
+    variance E[x^2] - E[x]^2, clipped at 0, over `dims` of an f32 tensor.
+
+    `global_batch`: the statistics of the data-parallel global batch, as
+    scp_tpu's BatchNorm takes them over its batch-sharded array: E[x] and
+    E[x^2] averaged over the ranks (every rank holds as many rows), with
+    their gradient.  Nothing changes with one rank."""
     mu = x32.mean(dim=dims)
     mu2 = (x32 * x32).mean(dim=dims)
+    n = distributed.world_size() if global_batch else 1
+    if n > 1:
+        mu = distributed.global_sum(mu, grad=True) / n
+        mu2 = distributed.global_sum(mu2, grad=True) / n
     return mu, torch.clamp(mu2 - mu * mu, min=0.0)
 
 
@@ -101,7 +111,7 @@ class EdgeConv(nn.Module):
             mean, var = batch_stats(torch.stack([mean + std, mean - std]), 0)
             return out.to(self.dtype), mean, var
         h = (gather_neighbors(a, idx) + bc[:, :, None, :]).float()  # (B, N, k, F)
-        mean, var = batch_stats(h, (0, 1, 2))
+        mean, var = batch_stats(h, (0, 1, 2), global_batch=True)
         h = F.leaky_relu(bn.normalize(h, mean, var), 0.2)
         return h.amax(dim=2).to(self.dtype), mean, var
 

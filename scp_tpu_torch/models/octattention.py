@@ -32,7 +32,11 @@ come from the `torch.Generator` the caller passes to `forward`, never
 from the global RNG; the trainer seeds one per step from (seed + 1, step),
 as scp_tpu folds the step into PRNGKey(seed + 1), so a resumed run draws
 the masks an uninterrupted run would have drawn.  The bits cannot match
-JAX's RNG.  Eval mode, p = 0, `decode_step` and `decode_insert` never
+JAX's RNG.  A data-parallel rank passes `drop_rows` = (its index, the
+rank count): every site draws the mask of the global batch's shape and
+keeps the rank's rows, so P ranks drop what one rank drops on the same
+global batch (scp_tpu draws over its batch-sharded global array).  Eval
+mode, p = 0, `decode_step` and `decode_insert` never
 drop, so serving computes what it computed without dropout.
 
 The attention is plain PyTorch: scp_tpu computes it with einsums and
@@ -57,11 +61,16 @@ def _identity(x):
     return x
 
 
-def dropout(x, p: float, generator: torch.Generator):
+def dropout(x, p: float, generator: torch.Generator, rows: tuple = (0, 1)):
     """flax's nn.Dropout(p) in training: each element kept with
     probability 1 - p and divided by 1 - p, the rest 0; the mask drawn
-    from `generator` (on x's device)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    from `generator` (on x's device).  rows = (i, n): x is slice i of n
+    equal slices of a global batch along dim 0; the mask is drawn for the
+    global batch and slice i of it kept."""
+    i, n = rows
+    b = x.shape[0]
+    keep = torch.rand((n * b, *x.shape[1:]), generator=generator, device=x.device)[
+        i * b : (i + 1) * b] >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -278,18 +287,20 @@ class OctAttention(nn.Module):
 
     # -- full forward ----------------------------------------------------------
 
-    def _dropper(self, generator):
+    def _dropper(self, generator, rows):
         if not (self.training and self.dropout > 0.0):
             return _identity
         if generator is None:
             raise ValueError(f"OctAttention in train mode drops with p = {self.dropout}: pass "
                              "forward a torch.Generator on the model's device")
-        return functools.partial(dropout, p=self.dropout, generator=generator)
+        return functools.partial(dropout, p=self.dropout, generator=generator, rows=rows)
 
-    def forward(self, data, pos, generator: torch.Generator | None = None):
+    def forward(self, data, pos, generator: torch.Generator | None = None,
+                drop_rows: tuple = (0, 1)):
         """Logits (B, N, 255) f32.  In train mode with dropout > 0 the
-        masks are drawn from `generator`."""
-        drop = self._dropper(generator)
+        masks are drawn from `generator`, for a global batch of which this
+        batch is slice drop_rows = (index, count)."""
+        drop = self._dropper(generator, drop_rows)
         n = data.shape[1]
         embed = self._tokens(data, pos, unknown=False)
         embed_unknown = self._tokens(data, pos, unknown=True)

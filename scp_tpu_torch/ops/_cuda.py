@@ -192,6 +192,21 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_device(*tensors):
+    """Context manager making the operands' card the current CUDA device
+    for a launch.  The launchers run on the runtime's current device
+    (cudaGetDevice, cudaFuncSetAttribute, the launch itself), not on the
+    device of the pointers they are given, so a launch for tensors on
+    cuda:1 while cuda:0 is current would run on the wrong card.  Raises
+    when the operands (None ones skipped) lie on more than one device."""
+    import torch
+
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"kernel operands on {sorted(map(str, devs))}: one CUDA device expected")
+    return torch.cuda.device(devs.pop())
+
+
 def dtype_flag(t) -> int:
     """The launcher's is_f32 flag for a bf16 or f32 tensor; raises on any
     other element type."""

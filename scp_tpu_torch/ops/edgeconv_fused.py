@@ -16,7 +16,10 @@ statistics are exact, one f32 pass over the gather:
   sumsq (g + bc) = sum_k,m g^2 + 2 * sum_m bc * esum_m + k * sum_m bc^2
 
 mean and var are detached: scp_tpu's declared stop-gradient through the
-statistics (its module docstring; the dropped terms are O(1/k)).  The
+statistics (its module docstring; the dropped terms are O(1/k)).  Under
+data-parallel training the sums s1, s2 and the count are summed over the
+ranks first (train/distributed.py), so the statistics are the global
+batch's, as scp_tpu takes them over its batch-sharded array.  The
 gradient is autograd's own VJP of gather -> max/min, which routes each
 channel's cotangent to the winning neighbors only (ties split evenly, as
 JAX's max does).
@@ -25,6 +28,8 @@ JAX's max does).
 from __future__ import annotations
 
 import torch
+
+from scp_tpu_torch.train import distributed
 
 
 def edgeconv_train_fused(a, bc, scale, bias, idx, eps: float = 1e-5, slope: float = 0.2):
@@ -53,6 +58,8 @@ def edgeconv_train_fused(a, bc, scale, bias, idx, eps: float = 1e-5, slope: floa
         cnt = torch.tensor(float(k * m), dtype=torch.float32)
         s1 = esum.sum(dim=0) + k * bc_sg.sum(dim=0)
         s2 = gsq + 2.0 * (bc_sg * esum).sum(dim=0) + k * (bc_sg * bc_sg).sum(dim=0)
+        if distributed.world_size() > 1:
+            s1, s2, cnt = (distributed.global_sum(x) for x in (s1, s2, cnt.to(s1.device)))
         mean = s1 / cnt
         var = torch.clamp(s2 / cnt - mean * mean, min=0.0)
 

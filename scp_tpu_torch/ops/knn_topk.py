@@ -164,10 +164,11 @@ def knn_topk(feats: torch.Tensor, k: int, stats: torch.Tensor | None = None) -> 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    code = lib.scp_knn_topk(
-        feats.data_ptr(), int(feats.dtype == torch.bfloat16), ptr(sq), ptr(table), ptr(boxes),
-        ptr(stats), out.data_ptr(), b, n, c, k, _cuda.stream_ptr(feats),
-    )
+    with _cuda.on_device(feats, stats):
+        code = lib.scp_knn_topk(
+            feats.data_ptr(), int(feats.dtype == torch.bfloat16), ptr(sq), ptr(table),
+            ptr(boxes), ptr(stats), out.data_ptr(), b, n, c, k, _cuda.stream_ptr(feats),
+        )
     _cuda.check(lib, code, "knn_topk")
     knn_topk.launches += 1
     return out

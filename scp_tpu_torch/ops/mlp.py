@@ -93,12 +93,13 @@ def ln_mlp_residual(x, scale, bias, w1, b1, w2, b2, eps: float, act: str):
     lib = _cuda.load("mlp.cu")
     mid = None if arm == "sm90" else torch.empty((m, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    code = lib.scp_ln_mlp_residual(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), None if mid is None else mid.data_ptr(),
-        out.data_ptr(), m, c, f, float(eps), ACTS[act], flag, int(arm == "sm90"),
-        _cuda.stream_ptr(x),
-    )
+    with _cuda.on_device(x, scale, bias, w1, b1, w2, b2):
+        code = lib.scp_ln_mlp_residual(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), None if mid is None else mid.data_ptr(),
+            out.data_ptr(), m, c, f, float(eps), ACTS[act], flag, int(arm == "sm90"),
+            _cuda.stream_ptr(x),
+        )
     _cuda.check(lib, code, f"ln_mlp_residual ({arm})")
     ln_mlp_residual.launches += 1
     ln_mlp_residual.arms[arm] += 1

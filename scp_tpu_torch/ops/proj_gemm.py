@@ -105,11 +105,12 @@ def linear(a, w, bias, act=None, ln=None, resid=None, out=None, eps: float = 1e-
         out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     ldo = _check_rows("out", out, m, n)
     lib = _cuda.load("swin_attn.cu")
-    code = lib.scp_proj_gemm(
-        a.data_ptr(), lda, *ln_ptrs, float(eps), w.data_ptr(), bias.data_ptr(),
-        None if resid is None else resid.data_ptr(), ldr, out.data_ptr(), ldo, m, n, k,
-        ACTS[act], int(which == "sm90"), _cuda.stream_ptr(a),
-    )
+    with _cuda.on_device(a, w, bias, *(ln or ()), resid, out):
+        code = lib.scp_proj_gemm(
+            a.data_ptr(), lda, *ln_ptrs, float(eps), w.data_ptr(), bias.data_ptr(),
+            None if resid is None else resid.data_ptr(), ldr, out.data_ptr(), ldo, m, n, k,
+            ACTS[act], int(which == "sm90"), _cuda.stream_ptr(a),
+        )
     _cuda.check(lib, code, f"proj GEMM ({which})")
     linear.launches += 1
     linear.arms[which] += 1

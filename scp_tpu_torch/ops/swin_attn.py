@@ -152,13 +152,14 @@ def attn_sublayer_self(x, scale, bias, wqkv, bqkv, rel_bias, mask, wp, bp,
     qkv = torch.empty((bn * w, 3 * c), dtype=x.dtype, device=dev)
     att = torch.empty((bn * w, c), dtype=x.dtype, device=dev)
     out = torch.empty_like(x)
-    code = lib.scp_attn_self(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), wqkv.data_ptr(),
-        bqkv.data_ptr(), rel_bias.data_ptr(), *_mask_args(mask),
-        wp.data_ptr(), bp.data_ptr(), qkv.data_ptr(), att.data_ptr(),
-        out.data_ptr(), bn, w, c, heads, float(eps), 1.0 / math.sqrt(c // heads), flag,
-        int(arm == "sm90"), _cuda.stream_ptr(x),
-    )
+    with _cuda.on_device(x, scale, bias, wqkv, bqkv, rel_bias, mask, wp, bp):
+        code = lib.scp_attn_self(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), rel_bias.data_ptr(), *_mask_args(mask),
+            wp.data_ptr(), bp.data_ptr(), qkv.data_ptr(), att.data_ptr(),
+            out.data_ptr(), bn, w, c, heads, float(eps), 1.0 / math.sqrt(c // heads), flag,
+            int(arm == "sm90"), _cuda.stream_ptr(x),
+        )
     _cuda.check(lib, code, f"attn_sublayer_self ({arm})")
     attn_sublayer_self.launches += 1
     attn_sublayer_self.arms[arm] += 1
@@ -183,14 +184,15 @@ def attn_sublayer_cross(x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias, mask, wp
     kvbuf = torch.empty((bn * w, 2 * c), dtype=x.dtype, device=dev)
     att = torch.empty((bn * w, c), dtype=x.dtype, device=dev)
     out = torch.empty_like(x)
-    code = lib.scp_attn_cross(
-        x.data_ptr(), qs.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        wq.data_ptr(), bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(),
-        rel_bias.data_ptr(), *_mask_args(mask), wp.data_ptr(),
-        bp.data_ptr(), qbuf.data_ptr(), kvbuf.data_ptr(), att.data_ptr(),
-        out.data_ptr(), bn, w, c, heads, float(eps), 1.0 / math.sqrt(c // heads), flag,
-        int(arm == "sm90"), _cuda.stream_ptr(x),
-    )
+    with _cuda.on_device(x, qs, scale, bias, wq, bq, wkv, bkv, rel_bias, mask, wp, bp):
+        code = lib.scp_attn_cross(
+            x.data_ptr(), qs.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            wq.data_ptr(), bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(),
+            rel_bias.data_ptr(), *_mask_args(mask), wp.data_ptr(),
+            bp.data_ptr(), qbuf.data_ptr(), kvbuf.data_ptr(), att.data_ptr(),
+            out.data_ptr(), bn, w, c, heads, float(eps), 1.0 / math.sqrt(c // heads), flag,
+            int(arm == "sm90"), _cuda.stream_ptr(x),
+        )
     _cuda.check(lib, code, f"attn_sublayer_cross ({arm})")
     attn_sublayer_cross.launches += 1
     attn_sublayer_cross.arms[arm] += 1

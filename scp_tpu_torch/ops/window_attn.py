@@ -93,12 +93,13 @@ def launch_core(q, k, v, bias, mask, scale: float, out) -> None:
             raise ValueError(f"mask: expected (n_masks, {w}, {w}), got {tuple(mask.shape)}")
         _cuda.check_cuda_tensor("mask", mask, torch.float32)
     lib = _cuda.load("window_attn.cu")
-    code = lib.scp_window_attn(
-        *(x for t in (q, k, v, out) for x in (t.data_ptr(), *t.stride()[:3])),
-        bias.data_ptr(), None if mask is None else mask.data_ptr(),
-        0 if mask is None else mask.shape[0], bn, h, w, hd, float(scale), flag,
-        _cuda.stream_ptr(q),
-    )
+    with _cuda.on_device(q, k, v, bias, mask, out):
+        code = lib.scp_window_attn(
+            *(x for t in (q, k, v, out) for x in (t.data_ptr(), *t.stride()[:3])),
+            bias.data_ptr(), None if mask is None else mask.data_ptr(),
+            0 if mask is None else mask.shape[0], bn, h, w, hd, float(scale), flag,
+            _cuda.stream_ptr(q),
+        )
     _cuda.check(lib, code, "attention core")
 
 

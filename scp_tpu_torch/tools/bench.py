@@ -1,7 +1,7 @@
 """Single-scan EHEM encode + decode throughput of the port on the card (the
 twin of the root bench.py's single-scan measurement).
 
-    python -m scp_tpu_torch.tools.bench [--passes 5]
+    python -m scp_tpu_torch.tools.bench [--passes 5] [--pipeline K] [--devices N]
 
 The bench sweep (the ring-structured generator, seed 0, 120,000 points),
 spherical at lidar level 16 (kitti_qs(16)), the full-width EHEM from
@@ -15,8 +15,19 @@ Runs on the card only; without one it raises.
 
 vs_baseline: the reference (PyTorch EHEM on one A100-class GPU) codes
 roughly 6e4 points/sec through encode + decode at KITTI L16 (the root
-bench.py's yardstick, SURVEY.md section 6).  `--pipeline k` (several
-clouds in flight) is not ported yet (ROADMAP.md).
+bench.py's yardstick, SURVEY.md section 6).
+
+`--pipeline K` (K > 1; the root bench.py's throughput mode, reported
+beside the single scan, never in its place): K clouds in flight through
+one codec, the bench sweep and K - 1 more (seeds 100, 101, ...).  Every
+encode is dispatched before any payload is fetched, the decodes run as
+interleaved level generators (`decode_steps`), each cloud is checked
+lossless; one warm run, then the best of two.  The record gains
+{"pipeline": {"clouds", "points_per_sec", "x_single_scan"}}.
+
+`--devices N` codes on the sharded codec (EHEMCodec(devices=...)): N lane
+shards on cuda:0 .. cuda:N-1, wrapping around the visible cards (two
+shards on one card with N = 2 there); the record gains "devices": N.
 """
 
 from __future__ import annotations
@@ -73,9 +84,52 @@ def measure(codec, slices, n_points: int, passes: int, log=print) -> dict:
     return {"record": record, **best, "bpp": best["bits"] / n_points}
 
 
+def pipeline_bench(codec, slices_list):
+    """K clouds in flight through one codec (bench.py:83-130): every
+    encode dispatched before any finish_stream, the decodes interleaved
+    level by level.  Returns (wall seconds, streams, decoded codes); each
+    cloud is checked lossless."""
+    t0 = time.perf_counter()
+    encs = []
+    for sl in slices_list:
+        enc = codec.new_stream_encoder()
+        codec.encode_into(enc, sl)
+        encs.append(enc)
+    streams = [codec.finish_stream(enc)[0] for enc in encs]
+    gens = [codec.decode_steps(codec.new_stream_decoder(st, len(sl.occ_stream)), sl.max_level,
+                               np.array(sl.pos_mm, np.int64), angular=sl.angular,
+                               ground_truth=sl.occ_stream, level_sizes=sl.level_sizes)
+            for sl, st in zip(slices_list, streams)]
+    codes = [None] * len(gens)
+    live = list(range(len(gens)))
+    while live:
+        for i in list(live):
+            try:
+                next(gens[i])
+            except StopIteration as e:
+                codes[i] = e.value
+                live.remove(i)
+    _sync(codec.device)
+    wall = time.perf_counter() - t0
+    for sl, c in zip(slices_list, codes):
+        if not (c == sl.occ_stream).all():
+            raise AssertionError("pipelined decode is not lossless")
+    return wall, streams, codes
+
+
+def shard_devices(n: int) -> list:
+    """n lane-shard devices over the visible cards, round robin."""
+    import torch
+
+    count = torch.cuda.device_count()
+    return [f"cuda:{i % count}" for i in range(n)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--passes", type=int, default=int(os.environ.get("BENCH_PASSES", "5")))
+    ap.add_argument("--pipeline", type=int, default=0, help="K clouds in flight (K > 1)")
+    ap.add_argument("--devices", type=int, default=1, help="lane shards (sharded codec)")
     args = ap.parse_args(argv)
 
     import torch
@@ -101,8 +155,24 @@ def main(argv=None) -> int:
     slices = split_levels(res.context, angular=True)
     t_pre = time.time() - t0
     model = load_into(EHEM(static_knn=True, dtype=torch.bfloat16, device=device), CKPT)
-    codec = EHEMCodec(model, context_size=8192)
+    devices = shard_devices(args.devices) if args.devices > 1 else None
+    codec = EHEMCodec(model, context_size=8192, devices=devices)
     out = measure(codec, slices, N_POINTS, args.passes)
+    if devices:
+        out["record"]["devices"] = args.devices
+    k = args.pipeline
+    if k > 1:
+        batch = [slices] + [
+            split_levels(preprocess_points(synth_kitti(np.random.default_rng(100 + i), N_POINTS),
+                                           system="spher", qs=kitti_qs(LIDAR_LEVEL)).context,
+                         angular=True)
+            for i in range(k - 1)]
+        pipeline_bench(codec, batch)  # warm the extra clouds' shapes
+        wall = min(pipeline_bench(codec, batch)[0] for _ in range(2))
+        agg = k * N_POINTS / wall
+        out["record"]["pipeline"] = {"clouds": k, "points_per_sec": round(agg, 1),
+                                     "x_single_scan": round(agg / out["record"]["value"], 3)}
+        print(f"# pipeline k={k}: {wall:.4f}s for {k} clouds -> {agg:.1f} pts/s", flush=True)
     print(f"# device={torch.cuda.get_device_name(device)} n_points={N_POINTS} "
           f"nodes={len(slices.occ_stream)} pre={t_pre:.3f}s (octree {res.octree_s:.3f}s) "
           f"enc={out['encode_s']:.4f}s dec={out['decode_s']:.4f}s bpp={out['bpp']:.4f} "

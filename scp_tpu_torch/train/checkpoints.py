@@ -13,6 +13,10 @@ scp_tpu's: a compressed `.npz` of float16 leaves under flat
 "params/<scope>/<leaf>" and "batch_stats/..." keys (no batch_stats for
 OctAttention), which the port's codec (scp_tpu_torch.weights) and
 scp_tpu's load_params_npz both read.
+
+Data-parallel: every rank calls `save`, rank 0 writes (the state is
+replicated) and the others wait at a barrier until the file is there;
+every rank restores from it.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from scp_tpu_torch import weights
+from scp_tpu_torch.train import distributed
 
 
 def _ckpt_dir(run_dir: str) -> str:
@@ -30,8 +35,16 @@ def _ckpt_dir(run_dir: str) -> str:
 
 
 def save(run_dir: str, trainer, epoch: int, step: int, final: bool = False) -> str:
-    """Write the trainer's state; every epoch's file is kept."""
+    """Write the trainer's state; every epoch's file is kept.  Rank 0
+    writes; every rank returns once the file is written."""
     path = os.path.join(_ckpt_dir(run_dir), f"epoch={epoch}-step={step}.pt")
+    if distributed.is_lead():
+        _write(path, trainer, epoch, step, final)
+    distributed.barrier()
+    return path
+
+
+def _write(path: str, trainer, epoch: int, step: int, final: bool) -> None:
     if not os.path.exists(path):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         payload = {
@@ -43,9 +56,8 @@ def save(run_dir: str, trainer, epoch: int, step: int, final: bool = False) -> s
         torch.save(payload, tmp)
         os.replace(tmp, path)
     if final:
-        with open(os.path.join(_ckpt_dir(run_dir), "latest.txt"), "w") as f:
+        with open(os.path.join(os.path.dirname(path), "latest.txt"), "w") as f:
             f.write(os.path.basename(path))
-    return path
 
 
 def latest_checkpoint(run_dir: str) -> str | None:

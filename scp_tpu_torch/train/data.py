@@ -43,11 +43,18 @@ class ShardDataset:
         mode: str = "octattn",  # "octattn" | "ehem"
         vari_data_len: bool = False,
         seed: int = 42,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
-        """One process: scp_tpu's ShardDataset with process_index 0 of
-        process_count 1 (its multi-host slicing is not ported)."""
+        """batch_size is the PER-PROCESS (local) batch; under data-parallel
+        training each rank draws a process-strided slice of every global
+        batch, so the global batch content (and the epoch-keyed
+        randomness) is independent of the process count
+        (train/distributed.py)."""
         if mode not in ("octattn", "ehem"):
             raise ValueError(f"ShardDataset mode {mode!r}: 'octattn' or 'ehem'")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} of process_count {process_count}")
         self.files = sorted(glob.glob(root))
         if not self.files:
             raise FileNotFoundError(f"no shards match {root!r}")
@@ -56,6 +63,8 @@ class ShardDataset:
         self.mode = mode
         self.vari_data_len = vari_data_len
         self.seed = int(seed)
+        self.process_index = int(process_index)
+        self.process_count = int(process_count)
         self.file_rows = []
         for f in self.files:
             try:
@@ -69,7 +78,7 @@ class ShardDataset:
         raw row count: shard tails don't form windows, and an epoch must
         never wrap the permutation — each window is drawn at most once per
         epoch (the exactly-once property `batches` documents)."""
-        global_bs = self.batch_size
+        global_bs = self.batch_size * self.process_count
         n_win = sum(r // self.context_size for r in self.file_rows)
         return max(n_win // global_bs, 1)
 
@@ -131,7 +140,9 @@ class ShardDataset:
             sizes = erng.choice(EHEM_LEN_BUCKETS, size=spe)
             while step // spe == epoch:
                 i = step % spe
-                base = i * self.batch_size
+                # this process's contiguous slice of global batch i: the
+                # global batch is [p0 rows | p1 rows | ...] in process order
+                base = (i * self.process_count + self.process_index) * self.batch_size
                 items = [
                     self._window(shards, *index[perm[(base + j) % n_win]], max_levels)
                     for j in range(self.batch_size)
@@ -181,14 +192,23 @@ def prefetch(generator, depth: int = 2):
 
 
 def build_dataset(cfg) -> ShardDataset:
-    """The training dataset of a config (scp_tpu's build_dataset with one
-    process: the local batch is cfg.data.batch_size)."""
+    """The training dataset of a config.  cfg.data.batch_size is the
+    GLOBAL batch; each rank of the process group yields its 1/world slice,
+    and a batch that does not divide raises."""
+    from scp_tpu_torch.train import distributed
+
     mode = "ehem" if str(cfg.data.dataset_name).upper().startswith("EHEM") else "octattn"
+    pcount, pid = distributed.world_size(), distributed.rank()
+    global_bs = int(cfg.data.batch_size)
+    if global_bs % pcount:
+        raise ValueError(f"global batch {global_bs} not divisible by {pcount} processes")
     return ShardDataset(
         root=cfg.data.root,
         context_size=cfg.data.context_size,
-        batch_size=int(cfg.data.batch_size),
+        batch_size=global_bs // pcount,
         mode=mode,
         vari_data_len=bool(cfg.data.get("vari_data_len", False)),
         seed=int(cfg.get("seed", 42)),
+        process_index=pid,
+        process_count=pcount,
     )

@@ -1,5 +1,5 @@
-"""Single-device trainer of EHEM and OctAttention (the twin of
-scp_tpu/train/trainer.py).
+"""Trainer of EHEM and OctAttention, on one device or data-parallel over
+ranks (the twin of scp_tpu/train/trainer.py and its Mesh("data") step).
 
   * loss = cross-entropy / ln 2, bits per occupancy symbol, with scp_tpu's
     one-hot masked sum: the pad label 255 matches no class, so a pad node
@@ -18,8 +18,17 @@ pallas_attn) and scp_tpu's custom_vjp backward; OctAttention is plain
 PyTorch, as scp_tpu's is einsums.  OctAttention's dropout masks come from
 a generator seeded with (seed + 1, step) (`dropout_generator`), the
 twin of scp_tpu's fold_in(PRNGKey(seed + 1), step): a step's masks are a
-function of the seed and the step alone.  The data-parallel mesh and
-multi-host training of scp_tpu (train/distributed.py) are not ported yet.
+function of the seed and the step alone.
+
+Data-parallel (train/distributed.py): inside a process group of P ranks
+each rank trains on its card (cuda:LOCAL_RANK) with its slice of every
+global batch; BatchNorm takes the global batch's statistics and dropout
+the global batch's masks, the gradients are averaged over the ranks after
+the backward, and every rank applies the same Adam update, so the step is
+scp_tpu's jitted step over the batch-sharded global array: the mean loss
+of the global batch, identical parameters on every rank.  Rank 0 writes
+the run dir (config, metrics, checkpoints); every rank restores.  With
+one rank nothing of this runs.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from scp_tpu_torch import resolve_device
 from scp_tpu_torch.config import Config, save_config
 from scp_tpu_torch.models import build_model
 from scp_tpu_torch.models.layers import flax_init_
+from scp_tpu_torch.train import distributed
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
@@ -88,7 +98,13 @@ class Trainer:
     def __init__(self, cfg: Config, steps_per_epoch: int, device=None, **switches):
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
-        self.device = resolve_device(device)
+        self.rank, self.world = distributed.rank(), distributed.world_size()
+        dev = resolve_device(device)
+        if dev.type == "cuda" and self.world > 1:
+            if dev.index is None:  # the rank's card
+                dev = torch.device("cuda", distributed.local_rank() % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        self.device = dev
         dtype = torch.bfloat16 if cfg.get("bf16", True) else torch.float32
         self.model = build_model(cfg, dtype, device=self.device, **switches)
         self.seed = int(cfg.get("seed", 42))
@@ -133,13 +149,15 @@ class Trainer:
         dropout > 0) gets the generator of this step's masks."""
         if getattr(self.model, "dropout", 0.0) > 0.0:
             return self.model(data, pos,
-                              generator=dropout_generator(self.seed, self.step, self.device))
+                              generator=dropout_generator(self.seed, self.step, self.device),
+                              drop_rows=(self.rank, self.world))
         return self.model(data, pos)
 
     def train_step(self, batch, timings: dict | None = None):
-        """One Adam step on `batch`; returns the loss (a 0-d tensor on the
-        device).  With `timings`, synchronizes and adds the forward,
-        backward and update seconds to it."""
+        """One Adam step on `batch` (this rank's rows of the global batch);
+        returns the global batch's mean loss (a 0-d tensor on the device).
+        With `timings`, synchronizes and adds the forward, backward,
+        all-reduce (data-parallel only) and update seconds to it."""
         if self.opt is None:
             raise RuntimeError("call init_state first")
         t = time.perf_counter()
@@ -156,6 +174,13 @@ class Trainer:
             _sync(self.device)
             timings["backward"] = timings.get("backward", 0.0) + time.perf_counter() - t
             t = time.perf_counter()
+        if self.world > 1:
+            distributed.average_gradients(self.model.parameters())
+            loss = distributed.global_mean(loss)
+            if timings is not None:
+                _sync(self.device)
+                timings["allreduce"] = timings.get("allreduce", 0.0) + time.perf_counter() - t
+                t = time.perf_counter()
         lr = self.schedule(self.step)  # the count before the update, as optax reads it
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -171,17 +196,18 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, val_batches) -> float:
         """Mean held-out bits/node over a fixed batch list, in eval mode
-        (running BatchNorm, no dropout)."""
+        (running BatchNorm, no dropout); data-parallel, each rank holds its
+        rows of every batch and the means are averaged over the ranks."""
         was = self.model.training
         self.model.eval()
-        total = 0.0
+        total = torch.zeros((), dtype=torch.float64, device=self.device)
         try:
             for batch in val_batches:
                 data, pos, label = self._batch(batch)
-                total += float(cross_entropy_bits(self.model(data, pos), label))
+                total += cross_entropy_bits(self.model(data, pos), label).double()
         finally:
             self.model.train(was)
-        return total / max(len(val_batches), 1)
+        return float(distributed.global_mean(total)) / max(len(val_batches), 1)
 
     # -- loop -------------------------------------------------------------
 
@@ -192,9 +218,13 @@ class Trainer:
 
         cfg = self.cfg
         epochs = epochs or int(cfg.train.epoch)
+        # the run dir is rank 0's: parameters are replicated, so its copy
+        # is complete, and the ranks may share one filesystem
+        lead = distributed.is_lead()
         os.makedirs(run_dir, exist_ok=True)
-        save_config(cfg, run_dir)
-        metrics_path = os.path.join(run_dir, "metrics.jsonl")
+        if lead:
+            save_config(cfg, run_dir)
+        metrics_path = os.path.join(run_dir, "metrics.jsonl") if lead else os.devnull
 
         self.init_state()
         start_epoch = 0
@@ -222,14 +252,18 @@ class Trainer:
                                "lr": float(self.schedule(step)), "wall": time.time() - t0}
                         mf.write(json.dumps(rec) + "\n")
                         mf.flush()
-                        print(f"epoch {epoch} step {step} loss {loss:.4f} bits/node", flush=True)
+                        if lead:
+                            print(f"epoch {epoch} step {step} loss {loss:.4f} bits/node",
+                                  flush=True)
                     if val_batches and val_every and step % val_every == 0:
                         val = self.evaluate(val_batches)
                         rec = {"step": step, "epoch": epoch, "val_bits_per_node": val,
                                "wall": time.time() - t0}
                         mf.write(json.dumps(rec) + "\n")
                         mf.flush()
-                        print(f"epoch {epoch} step {step} VAL {val:.4f} bits/node", flush=True)
+                        if lead:
+                            print(f"epoch {epoch} step {step} VAL {val:.4f} bits/node",
+                                  flush=True)
                 if cfg.train.get("ckpt_every_epoch", True):
                     ckpt.save(run_dir, self, epoch=epoch, step=step)
         ckpt.save(run_dir, self, epoch=epochs - 1, step=step, final=True)

@@ -56,7 +56,8 @@ for m in ("scp_tpu_torch.config", "scp_tpu_torch.train.data", "scp_tpu_torch.tra
           "scp_tpu_torch.tools.preprocess", "scp_tpu_torch.tools.multi_preproc",
           "scp_tpu_torch.codec.staged", "scp_tpu_torch.utils.profiling",
           "scp_tpu_torch.native.metrics_native", "scp_tpu_torch.tools.test_gene",
-          "scp_tpu_torch.tools.psnr_test"):
+          "scp_tpu_torch.tools.psnr_test", "scp_tpu_torch.train.distributed",
+          "scp_tpu_torch.tools.dryrun_multichip"):
     assert m in mods, m
 
 from scp_tpu_torch.codec.ehem_codec import EHEMCodec

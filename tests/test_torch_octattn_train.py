@@ -223,8 +223,8 @@ def test_dropout_keeps_a_binomial_share_and_scales_it(monkeypatch):
     seen = []
     raw = toct.dropout
 
-    def recording(x, p, generator):
-        y = raw(x, p, generator)
+    def recording(x, p, generator, rows):
+        y = raw(x, p, generator, rows)
         seen.append((x.detach(), y.detach()))
         return y
 
