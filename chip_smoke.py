@@ -176,6 +176,31 @@ Phases, each printed as it ends (any failure exits non-zero):
      Any rank that fails, hangs past 600 s, or fails its process group's
      setup fails the phase.  `--phase12-only` runs phases 0, 1, 3, 4 and
      12 alone (a multi-card run of this phase; no kernel table).
+ 13. the last tools (tools/import_torch_ckpt.py, tools/profile_codec.py,
+     tools/precompile.py), in a scratch directory under chiprun_out/ that
+     the phase removes:
+     13a. the sknn checkpoint as a reference SCP state_dict
+          (`reference_state_dict`, the inverse of the importer's rules:
+          q|k|v split, torch layouts, the skipped buffers added) in a
+          Lightning-style .ckpt, imported by `tools.import_torch_ckpt
+          --model ehem` in a fresh process (weights_only load, the
+          structure checked on the card): every array equal to the npz's
+          bit for bit; the imported full-width model codes phase 4's
+          slices losslessly with a payload byte-identical to phase 4's, A
+          and B launched in every phase-1 call and A and C in every
+          phase-2 call; the same for OctAttention from the v2 checkpoint,
+          whose imported model's logits on a 1024-row window of the L12
+          sweep equal the npz-loaded model's bit for bit;
+     13b. `tools.profile_codec --what codec --group 8` in rans, staged and
+          full modes and `--what train --batch 8` with remat off and on
+          (tools/profile_train.py's timed steps of phase 7's recipe) in
+          this process, their JSON lines printed: every time finite and
+          positive, every MFU in (0, 100] against the bf16 peak, A, B and
+          C launched in the timed calls;
+     13c. `tools.precompile --points 120000 --levels 16` in a fresh
+          process: all four kernel libraries and the native one reused,
+          its phase-shape count equal to phase 4's plan; seed and re-warm
+          times printed.
 
 Phase 2 also holds A, B, C and E in f32 against their plain versions
 (atol = rtol = 1e-4), and times the attention core that B, C and E share
@@ -197,6 +222,7 @@ The second-to-last line is the JSON kernel table; the last line is
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -696,8 +722,8 @@ def roundtrip(codec, slices, counted):
     bpp = bits / N_POINTS
     if not math.isfinite(bpp) or bits <= 0:
         raise AssertionError(f"bad bit count {bits}")
-    return dict(bpp=bpp, bytes=len(stream), encode_s=t_enc, decode_s=t_dec,
-                launches=launches)
+    return dict(bpp=bpp, bytes=len(stream), sha256=hashlib.sha256(stream).hexdigest(),
+                encode_s=t_enc, decode_s=t_dec, launches=launches)
 
 
 # ---- phase 7: training ------------------------------------------------------
@@ -2103,6 +2129,294 @@ def phase12(model, counted, slices, p4) -> dict:
     return p12
 
 
+# ---- phase 13: the last tools (the checkpoint importer, profile_codec, precompile)
+
+# The inverse of scp_tpu_torch/tools/import_torch_ckpt.py's rules: a flat
+# flax-layout tree ("params/...", "batch_stats/..." keys, as a weight .npz
+# holds them) as the reference SCP state_dict the importer reads.  Test
+# scaffolding for phase 13a and tests/test_torch_import_ckpt.py, not a
+# feature of the port.
+_INV_W = {"kernel": "weight", "bias": "bias"}
+_INV_LN = {"scale": "weight", "bias": "bias"}
+_INV_SWIN = r"params/swin_(self|cross)/stage_(\d+)/"
+_INV_BLOCK = _INV_SWIN + r"block_(\d+)/"
+
+
+def _inv_block(m) -> str:
+    return f"swin_{m[1]}_transformer.layers.{m[2]}.blocks.{m[3]}."
+
+
+def _inv_linear(path, v):
+    """kernel (in, out) -> torch Linear weight (out, in); a bias passes."""
+    return v.T if path.endswith("kernel") else v
+
+
+_INV_EHEM = [
+    (r"params/geo/conv(\d)/conv/kernel",
+     lambda m: f"geo_feat_generator.conv{m[1]}.0.weight", lambda p, v: v.T[:, :, None, None]),
+    (r"params/geo/conv(\d)/bn/(scale|bias)",
+     lambda m: f"geo_feat_generator.conv{m[1]}.1.{_INV_LN[m[2]]}", None),
+    (r"batch_stats/geo/conv(\d)/bn/(mean|var)",
+     lambda m: f"geo_feat_generator.conv{m[1]}.1.running_{m[2]}", None),
+    (r"params/geo/(occ|level|octant)_enc/embedding",
+     lambda m: f"geo_feat_generator.{m[1]}_enc.weight", None),
+    (r"params/geo/(mlp2|mlp3|edge_mlp1|edge_mlp2)/dense_(\d)/(kernel|bias)",
+     lambda m: f"geo_feat_generator.{m[1]}.{2 * int(m[2])}.{_INV_W[m[3]]}", _inv_linear),
+    (r"params/(ancient_mlp|prob_pred_mlp1|prob_pred_mlp2|pre_occ_mlp|pre_attn_mlp)"
+     r"/dense_(\d)/(kernel|bias)",
+     lambda m: f"{m[1]}.{2 * int(m[2])}.{_INV_W[m[3]]}", _inv_linear),
+    (_INV_BLOCK + r"norm([12])/(scale|bias)",
+     lambda m: f"{_inv_block(m)}layernorm_{'before' if m[4] == '1' else 'after'}."
+               f"{_INV_LN[m[5]]}", None),
+    (_INV_BLOCK + r"attn/(query|key|value)/(kernel|bias)",
+     lambda m: f"{_inv_block(m)}attention.self.{m[4]}.{_INV_W[m[5]]}", _inv_linear),
+    (_INV_BLOCK + r"attn/rel_pos_bias",
+     lambda m: f"{_inv_block(m)}attention.self.relative_position_bias_table", None),
+    (_INV_BLOCK + r"attn/proj/(kernel|bias)",
+     lambda m: f"{_inv_block(m)}attention.output.dense.{_INV_W[m[4]]}", _inv_linear),
+    (_INV_BLOCK + r"mlp1/(kernel|bias)",
+     lambda m: f"{_inv_block(m)}intermediate.dense.{_INV_W[m[4]]}", _inv_linear),
+    (_INV_BLOCK + r"mlp2/(kernel|bias)",
+     lambda m: f"{_inv_block(m)}output.dense.{_INV_W[m[4]]}", _inv_linear),
+    (_INV_SWIN + r"merge/reduce/kernel",
+     lambda m: f"swin_{m[1]}_transformer.layers.{m[2]}.downsample.reduction.weight",
+     lambda p, v: v.T),
+    (_INV_SWIN + r"merge/norm/(scale|bias)",
+     lambda m: f"swin_{m[1]}_transformer.layers.{m[2]}.downsample.norm.{_INV_LN[m[3]]}", None),
+]
+
+_INV_OCTATTN = [
+    (r"params/layer_(\d+)/attn/(query|key|value)/(kernel|bias)",
+     lambda m: f"transformer_encoder.layers.{m[1]}.attn.mlp_{m[2]}.{_INV_W[m[3]]}", _inv_linear),
+    (r"params/layer_(\d+)/ffn([12])/(kernel|bias)",
+     lambda m: f"transformer_encoder.layers.{m[1]}.linear{m[2]}.{_INV_W[m[3]]}", _inv_linear),
+    (r"params/layer_(\d+)/norm([12])/(scale|bias)",
+     lambda m: f"transformer_encoder.layers.{m[1]}.norm{m[2]}.{_INV_LN[m[3]]}", None),
+    (r"params/(occ|level|octant)_enc/embedding", lambda m: f"{m[1]}_enc.weight", None),
+    (r"params/(abs_pos_enc|decoder0|decoder1)/(kernel|bias)",
+     lambda m: f"{m[1]}.{_INV_W[m[2]]}", _inv_linear),
+]
+
+
+def _split_fused(flat: dict) -> dict:
+    """Fused Swin projections back to the reference's separate query /
+    key / value: self q|k|v, cross k|v (cross keeps its query)."""
+    out = {}
+    for path, v in flat.items():
+        m = re.fullmatch(r"(.*/attn)/(qkv|kv)/(kernel|bias)", path)
+        if not m:
+            out[path] = v
+            continue
+        names = ("query", "key", "value") if m[2] == "qkv" else ("key", "value")
+        for name, part in zip(names, np.split(v, len(names), axis=-1)):
+            out[f"{m[1]}/{name}/{m[3]}"] = part
+    return out
+
+
+def reference_state_dict(flat: dict, model: str = "ehem") -> dict:
+    """A flat flax-layout tree -> the reference state_dict (CPU f32 tensors),
+    with the buffers the importer skips (BatchNorm `num_batches_tracked`,
+    Swin `relative_position_index`, OctAttention's causal `mask`)."""
+    rules = {"ehem": _INV_EHEM, "octattention": _INV_OCTATTN}[model]
+    sd = {}
+    for path, v in _split_fused(flat).items():
+        v = np.asarray(v, np.float32)
+        for pat, key, xf in rules:
+            m = re.fullmatch(pat, path)
+            if m:
+                break
+        else:
+            raise KeyError(f"no reference key for {path}")
+        name = key(m)
+        sd[name] = torch.from_numpy(np.ascontiguousarray(v if xf is None else xf(path, v)))
+        if name.endswith("running_mean"):
+            sd[name.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
+        if name.endswith("relative_position_bias_table"):
+            w = (v.shape[0] + 1) // 2
+            ar = torch.arange(w)
+            sd[name.replace("bias_table", "index")] = ar[:, None] - ar[None, :] + w - 1
+    if model == "octattention":
+        sd["mask"] = torch.ones(1024, 1024, dtype=torch.bool).triu(1)
+    return sd
+
+
+def _flat_npz(path: str) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _same_bits(got: dict, want: dict) -> list:
+    """Keys whose f32 arrays differ from `want`'s (f16 widened exactly),
+    bit for bit; a key on one side only counts too."""
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        a, b = np.asarray(got[k], np.float32), np.asarray(want[k], np.float32)
+        if a.shape != b.shape or not np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+            bad.append(k)
+    return bad
+
+
+def import_ckpt(flat: dict, model: str, workdir: str, name: str) -> dict:
+    """Write `flat` as a Lightning-style reference checkpoint, import it with
+    the CLI in a fresh process (no --trust_pickle), check the written npz
+    against `flat` bit for bit and return its path; the import's wall is
+    printed."""
+    ckpt, out = os.path.join(workdir, f"{name}.ckpt"), os.path.join(workdir, f"{name}.npz")
+    torch.save({"state_dict": reference_state_dict(flat, model), "epoch": 0,
+                "global_step": 0}, ckpt)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "scp_tpu_torch.tools.import_torch_ckpt",
+                           "--ckpt", ckpt, "--model", model, "--out", out], cwd=HERE,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"13a: import_torch_ckpt --model {model} failed (rc "
+                             f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+    got = _flat_npz(out)
+    bad = _same_bits(got, flat)
+    if bad:
+        raise AssertionError(f"13a {model}: imported arrays differ from the source: {bad[:5]}")
+    say(f"  13a {model}: {proc.stdout.strip()} in {time.time() - t0:.2f} s "
+        f"({os.path.getsize(ckpt) / 1e6:.1f} MB checkpoint); every array equals "
+        f"{name}'s source bit for bit")
+    return out
+
+
+def import_phase(counted, slices, p4, workdir) -> dict:
+    """13a (see the module docstring)."""
+    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+    from scp_tpu_torch.codec.octattn_codec import OctAttentionCodec
+    from scp_tpu_torch.core.preprocess import kitti_qs, preprocess_points
+    from scp_tpu_torch.models.ehem import EHEM
+    from scp_tpu_torch.models.octattention import OctAttention
+    from scp_tpu_torch.weights import load_into
+
+    imported = import_ckpt(_flat_npz(CKPT), "ehem", workdir, "ref_ehem")  # the npz's path
+    model = load_into(EHEM(static_knn=True, dtype=torch.bfloat16, device="cuda"), imported)
+    with PhaseCalls(model, counted) as pc:
+        r = roundtrip(EHEMCodec(model, context_size=8192), slices, counted.values())
+        calls = pc.check("phase 13a")
+    if r["sha256"] != p4["sha256"] or r["bytes"] != p4["bytes"]:
+        raise AssertionError(f"13a: the imported model's payload ({r['bytes']} bytes) differs "
+                             f"from phase 4's ({p4['bytes']} bytes)")
+    say(f"  13a ehem: the imported full-width model's L16 roundtrip is lossless, payload "
+        f"byte-identical to phase 4's ({r['bytes']} bytes, bpp={r['bpp']:.4f}); phase calls "
+        f"{calls}, launches A/B/C/D/E {r['launches']}")
+    del model
+
+    got = import_ckpt(_flat_npz(OCT_CKPT), "octattention", workdir, "ref_octattn")
+    pts = synth_kitti(np.random.default_rng(0), N_POINTS).astype(np.float32)
+    ctx = preprocess_points(pts, system="spher", qs=kitti_qs(OCT_LEVEL)).context
+    ref = load_into(OctAttention(device="cuda"), OCT_CKPT)
+    levels, _, _ = OctAttentionCodec(ref).split_levels(ctx)
+    data, pos = levels[int(np.argmax([d.shape[0] for d, _ in levels]))]
+    d = torch.from_numpy(data[None, :1024].astype(np.int32)).cuda()
+    p = torch.from_numpy(pos[None, :1024]).cuda()
+    with torch.no_grad():
+        want = ref(d, p)
+        logits = load_into(OctAttention(device="cuda"), got)(d, p)
+    if not torch.equal(logits, want):
+        raise AssertionError("13a: the imported OctAttention's logits differ from the npz's")
+    say(f"  13a octattention: a 1024-row window's logits {tuple(logits.shape)} bit-identical "
+        "to the npz-loaded model's")
+    return dict(ehem_bytes=r["bytes"], ehem_bpp=r["bpp"], phase_calls=calls,
+                launches=dict(zip("ABCDE", r["launches"])),
+                encode_s=r["encode_s"], decode_s=r["decode_s"])
+
+
+def profile_phase(smi: str) -> dict:
+    """13b (see the module docstring)."""
+    from scp_tpu_torch.tools import profile_codec
+
+    out = {}
+    for argv in (["--what", "codec", "--group", "8", "--mode", "rans"],
+                 ["--what", "codec", "--group", "8", "--mode", "staged"],
+                 ["--what", "codec", "--group", "8", "--mode", "full"],
+                 ["--what", "train", "--batch", "8"],
+                 ["--what", "train", "--batch", "8", "--remat"]):
+        r = profile_codec.main(argv)
+        tag = (("train_remat" if r["remat"] else "train") if r["what"].startswith("train")
+               else f"codec_{r['mode']}")
+        times = ([r["step_s"]] if tag.startswith("train") else
+                 [r["phase1_s"], r["phase2_s"], r["fetch_hi_cdf_s"], r["fetch_iv_s"],
+                  r["ac_enc_s_per_mnode"], r["ac_dec_s_per_mnode"]])
+        if not all(math.isfinite(t) and t >= 0 for t in times) or min(times[:2]) <= 0:
+            raise AssertionError(f"13b {tag}: a time is not finite and positive: {times}")
+        if tag in ("codec_staged", "codec_full") and r["fetch_hi_cdf_s"] <= 0:
+            raise AssertionError(f"13b {tag}: no fetch time")
+        mfus = [v for k, v in r.items() if k.endswith("mfu_pct")]
+        if not mfus or not all(v is not None and 0 < v <= 100 for v in mfus):
+            raise AssertionError(f"13b {tag}: MFU outside (0, 100]: {mfus}")
+        if any(r["launches"][k] == 0 for k in "ABC"):
+            raise AssertionError(f"13b {tag}: A, B or C never launched in the timed calls: "
+                                 f"{r['launches']}")
+        out[tag] = r
+        torch.cuda.empty_cache()
+    c = out["codec_rans"]
+    say(f"  13b on {smi}: phase 1 at (8, 8192) {c['phase1_s'] * 1e3:.3f} ms, "
+        f"{c['phase1_flops'] / 1e12:.4f} TFLOP, MFU {c['phase1_mfu_pct']:.3f}%; phase 2 "
+        f"{c['phase2_s'] * 1e3:.3f} ms, MFU {c['phase2_mfu_pct']:.3f}%; staged / full phase 1 "
+        f"{out['codec_staged']['phase1_s'] * 1e3:.3f} / {out['codec_full']['phase1_s'] * 1e3:.3f}"
+        f" ms; train step {out['train']['step_s']:.4f} s, MFU {out['train']['mfu_pct']:.3f}%, "
+        f"{out['train']['tokens_per_s']:.1f} tokens/s; with remat "
+        f"{out['train_remat']['step_s']:.4f} s, MFU {out['train_remat']['mfu_pct']:.3f}%")
+    return out
+
+
+def precompile_phase(model, slices) -> dict:
+    """13c (see the module docstring)."""
+    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+
+    plans, _, _ = EHEMCodec(model, context_size=8192)._plan_levels(slices.level_sizes)
+    shapes = len({(la, w) for calls, _ in plans for _, la, w in calls})
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "scp_tpu_torch.tools.precompile", "--points",
+                           str(N_POINTS), "--levels", str(LIDAR_LEVEL)], cwd=HERE,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"13c: precompile failed (rc {proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    r = json.loads(lines[-1])
+    libs, cls = r["libraries"], r["classes"][0]
+    if libs["kernels"]["cold"] or len(libs["kernels"]["cached"]) != 4 or libs["native"] != "cached":
+        raise AssertionError(f"13c: a library was not reused: {libs}")
+    if cls["phase_shapes"] != shapes:
+        raise AssertionError(f"13c: {cls['phase_shapes']} phase shapes, phase 4's plan {shapes}")
+    for line in lines[:-1]:
+        say(f"  13c {line}")
+    say(f"  13c: every library reused; {shapes} phase shapes (phase 4's plan); seed "
+        f"{cls['seed_s']:.3f} s, re-warm {cls['rewarm_s']:.3f} s; the process {wall:.2f} s")
+    return dict(phase_shapes=shapes, seed_s=cls["seed_s"], rewarm_s=cls["rewarm_s"],
+                process_s=wall, libraries=libs)
+
+
+def phase13(model, counted, slices, p4, smi) -> dict:
+    import shutil
+
+    t0 = time.time()
+    work = os.path.join(HERE, "chiprun_out", "phase13")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        out = {}
+        t = time.time()
+        out["13a"] = import_phase(counted, slices, p4, work)
+        say(f"  13a: {time.time() - t:.2f} s")
+    finally:  # the checkpoints (~100 MB each) do not come back
+        shutil.rmtree(work, ignore_errors=True)
+    t = time.time()
+    out["13b"] = profile_phase(smi)
+    say(f"  13b: {time.time() - t:.2f} s")
+    t = time.time()
+    out["13c"] = precompile_phase(model, slices)
+    say(f"  13c: {time.time() - t:.2f} s")
+    say(f"phase 13 the last tools (importer, profile_codec, precompile): "
+        f"{time.time() - t0:.2f} s")
+    say(json.dumps({"tools": out}))
+    return out
+
+
 def main(argv=None) -> int:
     """`--phase12-only`: phases 0, 1, 3 and 4 (phase 12's yardstick), then
     phase 12, and no kernel table (a multi-card run of the new phase)."""
@@ -2315,6 +2629,12 @@ def main(argv=None) -> int:
     for k in "ABCDE":
         rows[k]["dp_rank_launches"] = [r[k] for r in p12["12a"]["ehem_bf16"]["rank_launches"]]
         rows[k]["shard_launches"] = [s["launches"].get(k, 0) for s in p12["12b"]["shards"]]
+
+    # ---- 13. the last tools: the checkpoint importer, profile_codec, precompile
+    p13 = phase13(model, counted, slices, p4, smi)
+    for k in "ABCDE":
+        rows[k]["imported_ckpt_launches"] = p13["13a"]["launches"][k]
+        rows[k]["profile_launches"] = {t: r["launches"][k] for t, r in p13["13b"].items()}
     say(f"total wall {time.time() - t_start:.1f} s")
 
     for k, prefixes in (("A", ("mlp_sm90<",)), ("B", ("gemm_sm90<",)), ("C", ("gemm_sm90<",)),

@@ -27,8 +27,10 @@ subpackages mirror scp_tpu's:
   tools   — the test-data and shard CLIs (test_gene, psnr_test,
             preprocess, multi_preproc, gene_normals), the port bench
             (single-scan throughput on the card), the bench-checkpoint
-            recipe, profiles, probes.
-  utils   — stage timers and profiler annotations.
+            recipe, the reference-checkpoint importer, precompile,
+            profiles (MFU among them), probes, the scaling curve.
+  utils   — stage timers and profiler annotations; the build directory
+            and CPU devices (env).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with
 no card and no such argument they raise instead of falling back.

@@ -208,5 +208,17 @@ class GeoFeatGenerator(nn.Module):
         ec = self.edge_mlp2(torch.cat([pos3, ec], -1))
         return torch.cat([x, ec], -1)  # (B, N, 256)
 
+    def flops(self, batch: int, n: int) -> int:
+        """Forward products on (batch, n) nodes, 2 per multiply-add: each
+        KNN graph's scores (2 q.k) and the Dense layers (an EdgeConv's two
+        projections are its 2C -> F Dense)."""
+        rows = batch * n
+        graphs = [3] if self.static_knn else [3, self.conv2.conv.weight.shape[1] // 2,
+                                              self.conv3.conv.weight.shape[1] // 2]
+        f = sum(2 * batch * n * n * c for c in graphs)
+        f += sum(conv.conv.flops(rows) for conv in (self.conv1, self.conv2, self.conv3))
+        return f + sum(m.flops(rows) for m in (self.mlp2, self.mlp3, self.edge_mlp1,
+                                               self.edge_mlp2))
+
     def embed_occ(self, occ: torch.Tensor) -> torch.Tensor:
         return self._lookup(self.occ_enc, occ)

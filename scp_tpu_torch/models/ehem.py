@@ -209,3 +209,25 @@ class EHEM(nn.Module):
             if trim_last:
                 logits2 = logits2[:, :-1]
             return logits2
+
+    # ---- products (2 per multiply-add; tools/profile_codec.py's MFU) -------
+
+    def phase1_flops(self, lanes: int, width: int) -> int:
+        """decode_phase1 on (lanes, width) contexts (odd widths padded)."""
+        n = width + width % 2
+        f_swin, pyramid = self.swin_self.flops(lanes, n)
+        return (self.geo.flops(lanes, n) + f_swin
+                + self.ancient_mlp.multiscale_flops(lanes, pyramid)
+                + self.prob_pred_mlp1.flops(lanes * (n // 2)))
+
+    def phase2_flops(self, lanes: int, width: int) -> int:
+        """decode_phase2 after a phase-1 call on (lanes, width)."""
+        m = (width + width % 2) // 2
+        f_swin, pyramid = self.swin_cross.flops(lanes, m)
+        return (self.pre_occ_mlp.flops(lanes * m) + self.pre_attn_mlp.flops(lanes * m) + f_swin
+                + self.prob_pred_mlp2.multiscale_flops(
+                    lanes, pyramid, extra_width=self.prob_pred_mlp1.dense_0.weight.shape[1]))
+
+    def forward_flops(self, batch: int, context: int) -> int:
+        """The teacher-forced training forward on (batch, context)."""
+        return self.phase1_flops(batch, context) + self.phase2_flops(batch, context)

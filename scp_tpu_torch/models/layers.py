@@ -63,6 +63,11 @@ class Dense(nn.Module):
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.kernel(), b)
 
+    def flops(self, rows: int) -> int:
+        """Products of the forward over `rows` rows, 2 per multiply-add."""
+        out_f, in_f = self.weight.shape
+        return 2 * rows * in_f * out_f
+
 
 class LayerNorm(nn.Module):
     """flax `nn.LayerNorm(dtype=float32)`: statistics and output in f32."""
@@ -103,6 +108,9 @@ class MLP(nn.Module):
                 x = F.leaky_relu(x, self.negative_slope)
         return x
 
+    def flops(self, rows: int) -> int:
+        return sum(layer.flops(rows) for layer in self._layers())
+
     def multiscale(self, pyramid: Sequence[torch.Tensor], extra=None) -> torch.Tensor:
         """The stack applied to concat([up(p) for p in pyramid] + [extra])
         without materializing the concat: the first Dense is split into
@@ -132,6 +140,16 @@ class MLP(nn.Module):
             x = F.leaky_relu(x, self.negative_slope)
             x = layer(x)
         return x
+
+    def multiscale_flops(self, batch: int, pyramid, extra_width: int = 0) -> int:
+        """Products of `multiscale` over a pyramid [(rows per batch, width)]
+        and an extra of `extra_width` at full length: the first Dense's row
+        blocks at each level's own length, the rest at full length."""
+        full = pyramid[0][0]
+        out0 = self.dense_0.weight.shape[0]
+        f = sum(2 * batch * n * c * out0 for n, c in pyramid)
+        f += 2 * batch * full * extra_width * out0
+        return f + sum(layer.flops(batch * full) for layer in self._layers()[1:])
 
 
 @torch.no_grad()

@@ -213,6 +213,17 @@ class SwinBlock1D(nn.Module):
         h = self.mlp2(h)
         return x + h
 
+    def flops(self, batch: int, n: int) -> int:
+        """Forward products on (batch, n) tokens: the attention sublayer on
+        whole (padded) windows, the MLP on the n tokens."""
+        w, attn = self.window_size, self.attn
+        padded = batch * (n + (-n) % w)
+        qkv = (attn.query.flops(padded) + attn.kv.flops(padded) if self.cross
+               else attn.qkv.flops(padded))
+        core = 4 * padded * w * self.dim  # q.k^T and weights.v over each window
+        return (qkv + core + attn.proj.flops(padded) + self.mlp1.flops(batch * n)
+                + self.mlp2.flops(batch * n))
+
 
 class PatchMerging1D(nn.Module):
     def __init__(self, in_dim: int, dim: int, dtype=torch.float32):
@@ -288,3 +299,16 @@ class SwinEncoder1D(nn.Module):
             x, before, query = getattr(self, f"stage_{s}")(x, query=query)
             states.append(before)
         return states
+
+    def flops(self, batch: int, n: int):
+        """(forward products on (batch, n) tokens, [(tokens per batch,
+        width)] of the returned states[1:]: a multiscale head's pyramid)."""
+        f, pyramid = 0, []
+        for s in range(self.n_stages):
+            stage = getattr(self, f"stage_{s}")
+            f += sum(getattr(stage, f"block_{i}").flops(batch, n) for i in range(stage.depth))
+            pyramid.append((n, self.stage_widths[s]))
+            if stage.merge is not None:
+                n = (n + 1) // 2
+                f += stage.merge.reduce.flops(batch * n) * (2 if stage.cross else 1)
+        return f, pyramid

@@ -21,13 +21,15 @@ end):
     (`train.load_pretrain=checkpoints/octattn_synth_l12_v2.npz`).
 
 Each run reports the median wall of `--steps` timed steps, the peak
-memory, the forward / backward / update split, one step under
+memory, the forward / backward / update split, for EHEM the step's MFU
+and tokens/s (`profile_codec.step_rates`), one step under
 torch.profiler with each kernel's forward and plain backward in named
 ranges (their device time summed over the step), and the device kernel
 time by name with its idle share against the timed wall.  Prints a
 summary and writes it as JSON to --out.  chip_smoke.py phases 7 and 10 use
 `profiled_step`, `timed_steps`, `kernel_profile` and `reset_counts` from
-here.
+here; `profile_codec --what train` times the default recipe's step with
+`recipe_batch` and `timed_steps`.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ import time
 import numpy as np
 import torch
 
-CKPT = os.path.join("checkpoints", "ehem_synth_f16_sknn.npz")
+CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                    "checkpoints", "ehem_synth_f16_sknn.npz")
 N_POINTS, LIDAR_LEVEL = 120_000, 16  # the bench cloud's size and level
 
 
@@ -148,12 +151,14 @@ def profiled_step(step):
 
 def timed_steps(trainer, batch, steps: int) -> dict:
     """`steps` train_steps on `batch` after two warm ones: the median and
-    every wall (host clock ending in a sync), the peak memory and the
-    forward / backward / update shares."""
+    every wall (host clock ending in a sync), the peak memory (None on the
+    CPU) and the forward / backward / update shares."""
+    cuda = trainer.device.type == "cuda"
     for _ in range(2):  # warm: allocator, kernel loads
         trainer.train_step(batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     walls, split, losses = [], {}, []
     for _ in range(steps):
         t = time.perf_counter()
@@ -161,7 +166,8 @@ def timed_steps(trainer, batch, steps: int) -> dict:
         walls.append(time.perf_counter() - t)
     total = sum(split.values())
     return {"steps": steps, "median_s_per_step": float(np.median(walls)), "walls_s": walls,
-            "losses": losses, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": losses,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
             "shares": {k: v / total for k, v in split.items()}}
 
 
@@ -187,7 +193,21 @@ def kernel_profile(step, wall_s: float, top: int = 20) -> dict:
             "top_kernels": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in kernels[:top]]}
 
 
+def recipe_batch(shards: str, batch: int = 8, context: int = 8192, small: bool = False):
+    """chip_smoke.py phase 7's EHEM recipe on the clouds in `shards`: its
+    config (warm from CKPT; `small`: the recipe's narrow model, fresh) and
+    its first batch."""
+    from scp_tpu_torch.tools.train_bench_ckpt import recipe_config
+    from scp_tpu_torch.train.data import ShardDataset
+
+    cfg = recipe_config(shards, batch, context, small=small)
+    if not small:
+        cfg.train.load_pretrain = CKPT
+    return cfg, next(ShardDataset(cfg.data.root, context, batch, mode="ehem").batches())
+
+
 def measure(cfg, fixed, steps: int, counted, remat=None, **switches):
+    from scp_tpu_torch.tools.profile_codec import step_rates
     from scp_tpu_torch.train.trainer import Trainer
 
     if remat is not None:
@@ -195,14 +215,15 @@ def measure(cfg, fixed, steps: int, counted, remat=None, **switches):
     trainer = Trainer(cfg, steps_per_epoch=25, device="cuda", **switches)
     trainer.init_state()
     timed = timed_steps(trainer, fixed, steps)
+    rates = step_rates(trainer.model, fixed, timed["median_s_per_step"])
     reset_counts(counted.values())
     ranges = profiled_step(lambda: trainer.train_step(fixed))
     launches = {k: fn.launches for k, fn in counted.items()}
     prof = kernel_profile(lambda: trainer.train_step(fixed), timed["median_s_per_step"])
     del trainer
     torch.cuda.empty_cache()
-    return {"remat": remat, **timed, "kernel_ranges": ranges, "launches_per_step": launches,
-            **prof}
+    return {"remat": remat, **timed, **rates, "kernel_ranges": ranges,
+            "launches_per_step": launches, **prof}
 
 
 def named_config(config_name: str, overrides, shard_glob: str):
@@ -229,8 +250,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_train.py measures the card; no CUDA device available")
 
-    from scp_tpu_torch.tools.train_bench_ckpt import gen_shards, recipe_config
-    from scp_tpu_torch.train.data import ShardDataset
+    from scp_tpu_torch.tools.train_bench_ckpt import gen_shards
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -242,9 +262,7 @@ def main(argv=None):
         shards = os.path.join(work, "shards")
         gen_shards(shards, 2, N_POINTS, LIDAR_LEVEL, seed_base=1000)
         if args.config_name is None:
-            cfg = recipe_config(shards, 8, 8192)
-            cfg.train.load_pretrain = CKPT
-            fixed = next(ShardDataset(cfg.data.root, 8192, 8, mode="ehem").batches())
+            cfg, fixed = recipe_batch(shards)
             runs = [measure(cfg, fixed, args.steps, counted, remat=remat, static_knn=True)
                     for remat in (False, True)]
         else:
@@ -265,6 +283,8 @@ def main(argv=None):
         print(f"remat={r['remat']}: median {r['median_s_per_step']:.4f} s/step over {r['steps']}, "
               f"peak {r['peak_memory_gb']:.2f} GB, shares "
               + ", ".join(f"{k} {v:.3f}" for k, v in r["shares"].items())
+              + (f"; MFU {r['mfu_pct']:.3f}%, {r['tokens_per_s']:.1f} tokens/s"
+                 if r.get("mfu_pct") is not None else "")
               + f"; device kernels {r['device_kernel_ms']:.1f} ms, idle share "
               f"{r['device_idle_share']:.3f}; launches {r['launches_per_step']}")
         for k, v in sorted(r["kernel_ranges"].items()):

@@ -1,1 +1,2 @@
-"""Utilities of the port: stage timers and profiler annotations."""
+"""Utilities of the port: stage timers and profiler annotations
+(profiling), the build directory and CPU devices (env)."""
