@@ -12,8 +12,11 @@ Phases, each printed as it ends (any failure exits non-zero):
      checkpoint's own block weights; kernel D (fused KNN distance +
      top-k) on that level's quantized positions (15, 8192, 3) (its pruned
      arm; index lists identical to the plain version's), on the same rows
-     shuffled within each lane (nothing to prune; identical lists too)
-     and on random (15, 8192, 192) features, kernel E (window attention) at its
+     shuffled within each lane (nothing to prune; identical lists too),
+     and on its wide arm: random (15, 8192, 144 / 192) features, the dynamic
+     model's own EdgeConv 2 and 3 inputs of that call (15, 8192, 144) and
+     (15, 8192, 192) (ehem_synth_f16.npz), k = 64 on random (2, 4096, 192)
+     and C = 300 on random (2, 4096, 300); kernel E (window attention) at its
      on-path shape (1, 4, 512, 64) and at (240, 4, 512, 64); times of
      kernel, plain version and, where one PyTorch call computes the same
      function, that call;
@@ -201,6 +204,21 @@ Phases, each printed as it ends (any failure exits non-zero):
           process: all four kernel libraries and the native one reused,
           its phase-shape count equal to phase 4's plan; seed and re-warm
           times printed.
+ 14. the dynamic-graph EHEM (JAX's default DGCNN: static KNN off, EdgeConv
+     2 and 3 rebuild their graphs on their C = 144 and 192 features) at
+     full width from checkpoints/ehem_synth_f16.npz, bf16, context 8192, on
+     phase 4's cloud; three roundtrips, each lossless:
+     14a. the switches off (the chunked KNN on all three graphs): bpp
+          printed beside the root bench.py's TPU record, 18.175;
+     14b. pallas_knn: kernel D builds all three graphs of every phase-1
+          call of N >= 2048 rows, one launch on its pruned arm (positions)
+          and two on its wide arm (features) per call, counted by arm; its
+          stamp names the wide arm (knnwide=exactdot), 14a's does not;
+     14c. 14b's model with the DGCNN's own plain_seams (D's plain version
+          on the card; A, B and C stay kernels): 14b's bpp within 0.1% of
+          14c's (both score the graphs in f32; 14a's gap to them is
+          printed, not gated).
+     Walls and the KNN seam's CUDA-event time by graph width per roundtrip.
 
 Phase 2 also holds A, B, C and E in f32 against their plain versions
 (atol = rtol = 1e-4), and times the attention core that B, C and E share
@@ -213,7 +231,7 @@ fused kernel is its products) and through cuBLAS without LN or epilogue
 brute-force (warp, group) pairs scored on both row orders, read from the
 kernel's counter; D's bound counts the pairs this input needed.  Phase 1
 reads the registers and spills of each Hopper GEMM kernel and of D's
-pruned arm from the ptxas -v build log and fails on a spill; phase 4
+kernels (both arms) from the ptxas -v build log and fails on a spill; phase 4
 checks that A, B and C took the Hopper kernels on every launch.
 
 The second-to-last line is the JSON kernel table; the last line is
@@ -236,6 +254,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(HERE, "checkpoints", "ehem_synth_f16_sknn.npz")
+# JAX's default DGCNN, the dynamic graph (phase 14; phase 2's model features)
+DYN_CKPT = os.path.join(HERE, "checkpoints", "ehem_synth_f16.npz")
 OCT_CKPT = os.path.join(HERE, "checkpoints", "octattn_synth_l12_v2.npz")
 OCT_LEVEL = 12  # phase 9: the octattn checkpoint's training level
 # phase 9c's window schedule: one 1024-row forward per node at decode, so
@@ -444,8 +464,10 @@ def core_at_b_layout(rand, n_win, w, c, h, bias, mask):
     return row
 
 
-def kernel_phase(model, gen, slices):
-    """Phase 2: each kernel against its plain version; returns table rows."""
+def kernel_phase(model, gen, slices, dyn_feats):
+    """Phase 2: each kernel against its plain version; returns table rows.
+    `dyn_feats`: the dynamic model's EdgeConv 2 and 3 inputs of the
+    largest level's call (dynamic_features)."""
     from scp_tpu_torch.models.swin1d import _mask_tensor
     from scp_tpu_torch.ops import knn, knn_topk, proj_gemm, window_attn
     from scp_tpu_torch.ops import mlp as mlp_ops
@@ -560,49 +582,68 @@ def kernel_phase(model, gen, slices):
 
     # ---- D: fused KNN distance + top-k, k = 20: the L16 position graph of
     # the (15, 8192) call (the pruned arm), the same rows shuffled within
-    # each lane (nothing to prune), then the dynamic graph's widest
-    # features (the brute-force arm)
+    # each lane (nothing to prune), then the wide arm: the dynamic graph's
+    # widths on random features, the dynamic model's own EdgeConv 2
+    # and 3 inputs of that call (C = 144, 192), and the Pallas kernel's
+    # reach past the old caps (k = 64; C = 300) on random (2, 4096) rows
     k = 20
     d_shapes = {}
     pos = level_positions(slices, lanes, width)
     perm = torch.randperm(width, generator=gen, device=dev)
-    for tag, feats in (
-        ("positions", pos),
-        ("shuffled", pos[:, perm].contiguous()),
-        ("c192", rand(lanes, width, 192)),
+    for tag, feats, kk in (
+        ("positions", pos, k),
+        ("shuffled", pos[:, perm].contiguous(), k),
+        ("c144", rand(lanes, width, 144), k),
+        ("c192", rand(lanes, width, 192), k),
+        ("dyn_f2", dyn_feats[0], k),
+        ("dyn_f3", dyn_feats[1], k),
+        ("k64", rand(2, 4096, 192), 64),
+        ("c300", rand(2, 4096, 300), k),
     ):
         b_, n_, c_ = feats.shape
-        pruned = c_ <= knn_topk.PRUNED_MAX_C
+        pruned = knn_topk.takes_pruned_arm(c_, kk)
         stats = torch.zeros(1, dtype=torch.int64, device=dev) if pruned else None
-        got = knn_topk.knn_topk(feats, k, stats=stats)
-        again = knn_topk.knn_topk(feats, k)
-        want = knn_topk.knn_topk_plain(feats, k)
+        got = knn_topk.knn_topk(feats, kk, stats=stats)
+        again = knn_topk.knn_topk(feats, kk)
+        want = knn_topk.knn_topk_plain(feats, kk)
         torch.cuda.synchronize()
-        err = check_knn(f"D knn_topk {tuple(feats.shape)} {tag}", got, again, want, feats,
-                        min_rows=1.0 if pruned else KNN_SAME_ROWS)
+        err = check_knn(f"D knn_topk {tuple(feats.shape)} k={kk} {tag}", got, again, want,
+                        feats, min_rows=1.0 if pruned else KNN_SAME_ROWS)
         # the work this input needs: the (warp, group) pairs the pruned arm
         # scored (8 queries x 32 keys each), every pair for the wide arm
         total = b_ * -(-n_ // knn_topk.QPW) * -(-n_ // knn_topk.GROUP)
         visited = int(stats) if pruned else total
         pairs = visited * knn_topk.QPW * knn_topk.GROUP if pruned else b_ * n_ * n_
-        b, by = bound_ms(b_ * n_ * c_ * 2 + b_ * n_ * k * 8, 2 * pairs * c_)
+        b, by = bound_ms(b_ * n_ * c_ * 2 + b_ * n_ * kk * 8, 2 * pairs * c_)
         d_shapes[tag] = dict(
-            err=err, ms=cuda_time_ms(lambda: knn_topk.knn_topk(feats, k), 10), bound=b, by=by,
-            visited=visited, total=total,
+            err=err, ms=cuda_time_ms(lambda: knn_topk.knn_topk(feats, kk), 10), bound=b, by=by,
+            visited=visited, total=total, shape=[b_, n_, c_], k=kk,
         )
         if tag != "shuffled":  # the same function of the same rows as "positions"
             d_shapes[tag].update(
-                plain=cuda_time_ms(lambda: knn_topk.knn_topk_plain(feats, k), 3),
-                main=cuda_time_ms(lambda: knn.knn_indices(feats, k), 3))
+                plain=cuda_time_ms(lambda: knn_topk.knn_topk_plain(feats, kk), 3),
+                main=cuda_time_ms(lambda: knn.knn_indices(feats, kk), 3))
         if pruned:
             say(f"  D {tag}: scored {visited} of {total} (warp, group) pairs, "
                 f"share {visited / total:.4f} of the brute-force work")
-    dp, ds, dw = d_shapes["positions"], d_shapes["shuffled"], d_shapes["c192"]
+        else:
+            say(f"  D {tag} (wide arm) {tuple(feats.shape)} k={kk}: {d_shapes[tag]['ms']:.4f} ms, "
+                f"plain {d_shapes[tag]['plain']:.4f}, main-path KNN {d_shapes[tag]['main']:.4f}, "
+                f"bound {b:.4f} ms ({by}), {2 * pairs * c_ / d_shapes[tag]['ms'] / 1e9:.1f} "
+                f"TFLOP/s")
+    dp, ds = d_shapes["positions"], d_shapes["shuffled"]
+    wide = {}
+    for tag in ("c144", "c192", "dyn_f2", "dyn_f3", "k64", "c300"):
+        w_ = d_shapes[tag]
+        wide.update({f"{tag}_shape": w_["shape"], f"{tag}_k": w_["k"], f"{tag}_ms": w_["ms"],
+                     f"{tag}_plain_ms": w_["plain"], f"{tag}_bound_ms": w_["bound"],
+                     f"{tag}_bound_by": w_["by"], f"{tag}_main_path_knn_ms": w_["main"],
+                     f"{tag}_max_abs_err": w_["err"]})
     rows["D"] = dict(
         name="knn_topk", route="cuda", source="scp_tpu_torch/ops/csrc/knn_topk.cu",
         replaces="scp_tpu/ops/pallas_knn.py:59",
-        max_abs_err=max(dp["err"], ds["err"], dw["err"]), ms=dp["ms"], plain_ms=dp["plain"],
-        bound_ms=dp["bound"], bound_by=dp["by"], library_ms=None,
+        max_abs_err=max(w_["err"] for w_ in d_shapes.values()), ms=dp["ms"],
+        plain_ms=dp["plain"], bound_ms=dp["bound"], bound_by=dp["by"], library_ms=None,
         library_note="no one PyTorch call computes distance + top-k (torch.cdist, then "
                      "torch.topk, is two)",
         shape=[lanes, width, 3], main_path_knn_ms=dp["main"],
@@ -610,8 +651,7 @@ def kernel_phase(model, gen, slices):
         groups_total=dp["total"], groups_visited_share=dp["visited"] / dp["total"],
         groups_visited_shuffled_share=ds["visited"] / ds["total"],
         shuffled_ms=ds["ms"], shuffled_bound_ms=ds["bound"], shuffled_bound_by=ds["by"],
-        c192_shape=[lanes, width, 192], c192_ms=dw["ms"], c192_plain_ms=dw["plain"],
-        c192_bound_ms=dw["bound"], c192_bound_by=dw["by"], c192_main_path_knn_ms=dw["main"],
+        **wide,
     )
 
     # ---- E: window attention at its on-path shape (one padded window of
@@ -659,11 +699,11 @@ def kernel_phase(model, gen, slices):
 
 
 def check_spills(rows, what):
-    """Prints each kernel's registers and spills; fails on a spill, or when
-    the build logs hold no kernel of `what`."""
+    """Prints each kernel's registers, spills and stack frame; fails on a
+    spill, or when the build logs hold no kernel of `what`."""
     for k, r in sorted(rows.items()):
         say(f"  {k}: {r['registers']} registers at entry, spill stores {r['spill_stores']} B, "
-            f"spill loads {r['spill_loads']} B")
+            f"spill loads {r['spill_loads']} B, stack frame {r.get('stack')} B")
         if r["spill_stores"] or r["spill_loads"]:
             raise AssertionError(f"{k} spills registers")
     if not rows:
@@ -684,17 +724,20 @@ def sm90_resources(cuda):
 
 
 def knn_resources(cuda):
-    """Registers and spills of kernel D's pruned arm: the search, by row
-    width in floats (4: up to 3 coordinates, 8: 4), and the pre-pass, by
-    element type and C; fails on any spill."""
+    """Registers and spills of kernel D: the pruned arm's search, by row
+    width in floats (4: up to 3 coordinates, 8: 4), its pre-pass, by
+    element type and C, and the wide arm, by element type and list slots
+    per lane (1: k <= 32, 2: k <= 64); fails on any spill."""
     rows = {}
-    for name in ("knn_topk_pruned", "knn_topk_boxes"):
+    for name in ("knn_topk_pruned", "knn_topk_boxes", "knn_topk_wide"):
         for r in cuda.ptxas_report("knn_topk.cu", name):
             targs = re.findall(r"Li(\d+)E", r["kernel"])
-            if name == "knn_topk_boxes":
+            if name != "knn_topk_pruned":
                 targs.insert(0, "bf16" if "bfloat16" in r["kernel"] else "f32")
             rows[f"{name}<{','.join(targs)}>"] = r
-    return check_spills(rows, "pruned KNN")
+    if not any(k.startswith("knn_topk_wide<") for k in rows):
+        raise AssertionError("no knn_topk_wide kernel in the build log")
+    return check_spills(rows, "KNN")
 
 
 def roundtrip(codec, slices, counted):
@@ -2417,6 +2460,148 @@ def phase13(model, counted, slices, p4, smi) -> dict:
     return out
 
 
+# ---- phase 14: the dynamic-graph EHEM -----------------------------------------
+
+# the root bench.py's TPU record of the dynamic graph with this checkpoint
+# (bench.py:176-179, approximate top-k there); printed beside 14a, not a gate
+TPU_DYNAMIC_BPP = 18.175
+
+
+def load_dynamic(**switches):
+    """The full-width bf16 EHEM on the dynamic graph (static KNN off) from
+    its own checkpoint, ehem_synth_f16.npz."""
+    from scp_tpu_torch.models.ehem import EHEM
+    from scp_tpu_torch.weights import load_into
+
+    return load_into(EHEM(static_knn=False, dtype=torch.bfloat16, device="cuda", **switches),
+                     DYN_CKPT)
+
+
+def dynamic_features(model, slices, lanes: int, width: int):
+    """The dynamic model's own EdgeConv 2 and 3 inputs (C = 144, 192) in
+    the largest level's (lanes, width) phase-1 call: that level's contexts
+    (pad rows: level 0, octant 0, occupancy 255) and level_positions."""
+    li = int(np.argmax(slices.level_sizes))
+    n = min(len(slices.data[li]), lanes * width)
+    d = np.zeros((lanes * width, 4, 3), np.int64)
+    d[..., 2] = 255
+    d[:n] = slices.data[li][:n]
+    data = torch.from_numpy(d).to("cuda", torch.int32).reshape(lanes, width, 4, 3)
+    got = {}
+    inner = model.geo._knn
+
+    def record(feats, k):
+        got[feats.shape[-1]] = feats.detach().contiguous()
+        return inner(feats, k)
+
+    model.geo._knn = record
+    try:
+        with torch.no_grad():
+            model.decode_phase1(data, level_positions(slices, lanes, width).float())
+    finally:
+        del model.geo._knn
+    return got[144], got[192]
+
+
+def timed_knn_seam(model, times):
+    """Wraps the DGCNN's KNN seam of `model` with CUDA events: appends
+    (C, start, stop) for every graph it builds.  Returns the undo."""
+    inner = model.geo._knn
+
+    def timed(feats, k):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        idx = inner(feats, k)
+        stop.record()
+        times.append((feats.shape[-1], start, stop))
+        return idx
+
+    model.geo._knn = timed
+    return lambda: delattr(model.geo, "_knn")
+
+
+def dynamic_roundtrip(tag, model, slices, counted):
+    """One roundtrip of the dynamic model with its phase-1 calls of N >=
+    2048 rows counted and its KNN seam timed (ms by graph width)."""
+    from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+    from scp_tpu_torch.ops import knn
+    from scp_tpu_torch.ops import knn_topk
+
+    codec = EHEMCodec(model, context_size=8192)
+    calls, times = [], []
+    inner_p1 = model.decode_phase1
+
+    def p1(data, pos):
+        calls.append(tuple(data.shape[:2]))
+        return inner_p1(data, pos)
+
+    model.decode_phase1 = p1
+    undo = timed_knn_seam(model, times)
+    try:
+        r = roundtrip(codec, slices, counted)
+    finally:
+        undo()
+        del model.decode_phase1
+    torch.cuda.synchronize()
+    ms = {}
+    for c, start, stop in times:
+        ms[c] = ms.get(c, 0.0) + start.elapsed_time(stop)
+    r.update(stamp=codec.coding_params(), arms=dict(knn_topk.knn_topk.arms),
+             big_calls=sum(1 for _, w in calls if w >= knn.FUSED_MIN_N), phase1_calls=len(calls),
+             knn_ms={str(c): v for c, v in sorted(ms.items())},
+             knn_wide_ms=sum(v for c, v in ms.items() if c > knn_topk.PRUNED_MAX_C))
+    say(f"  14{tag}: lossless, bpp={r['bpp']:.4f}, bytes={r['bytes']}, encode "
+        f"{r['encode_s']:.3f} s, decode {r['decode_s']:.3f} s; KNN seam ms by width "
+        f"{r['knn_ms']} (feature graphs {r['knn_wide_ms']:.1f} ms); launches A/B/C/D/E "
+        f"{r['launches']}, D arms {r['arms']}; {r['big_calls']} of {r['phase1_calls']} "
+        f"phase-1 calls with N >= {knn.FUSED_MIN_N}")
+    return r
+
+
+def dynamic_phase(counted, slices) -> dict:
+    """Phase 14: JAX's default DGCNN (the dynamic graph) at full width from
+    ehem_synth_f16.npz on the L16 cloud: 14a the switches off, 14b
+    pallas_knn (kernel D on all three graphs of the calls of N >= 2048
+    rows: the pruned arm on the positions, the wide arm on C = 144 and
+    192), 14c pallas_knn with D alone on its plain version (the DGCNN's own
+    plain_seams), every roundtrip lossless."""
+    from scp_tpu_torch.codec.ehem_codec import KNN_WIDE_NUMERICS
+
+    t0 = time.time()
+    out = {}
+    ia, ib = list(counted).index("D"), list(counted).index("A")
+    model = load_dynamic()
+    out["a"] = dynamic_roundtrip("a", model, slices, counted.values())
+    if out["a"]["launches"][ia]:
+        raise AssertionError("14a: kernel D launched with pallas_knn off")
+    say(f"  14a bpp {out['a']['bpp']:.4f} beside the TPU record {TPU_DYNAMIC_BPP} "
+        f"(approximate top-k there)")
+    del model
+    model = load_dynamic(pallas_knn=True)
+    out["b"] = dynamic_roundtrip("b", model, slices, counted.values())
+    arms, big = out["b"]["arms"], out["b"]["big_calls"]
+    if not big or arms["wide"] != 2 * big or arms["pruned"] != big:
+        raise AssertionError(f"14b: D arms {arms} for {big} phase-1 calls of N >= 2048 "
+                             f"(one pruned and two wide launches each)")
+    if out["b"]["launches"][ib] == 0:
+        raise AssertionError("14b: kernel A never launched")
+    say(f"  stamps: 14a {out['a']['stamp']}; 14b {out['b']['stamp']}")
+    if "knnwide=" in out["a"]["stamp"] or f"knnwide={KNN_WIDE_NUMERICS}" not in out["b"]["stamp"]:
+        raise AssertionError("14: the stamp does not name the wide arm where it runs")
+    model.geo.plain_seams = True  # D's plain version on the card; A, B, C stay kernels
+    out["c"] = dynamic_roundtrip("c", model, slices, counted.values())
+    if out["c"]["launches"][ia]:
+        raise AssertionError("14c: kernel D launched under the DGCNN's plain_seams")
+    if abs(out["b"]["bpp"] - out["c"]["bpp"]) > BPP_RTOL * out["c"]["bpp"]:
+        raise AssertionError(f"14b bpp {out['b']['bpp']} is not within {BPP_RTOL} of 14c's "
+                             f"{out['c']['bpp']}")
+    say(f"phase 14 dynamic graph: {time.time() - t0:.2f} s; bpp 14a/14b/14c "
+        f"{out['a']['bpp']:.4f} / {out['b']['bpp']:.4f} / {out['c']['bpp']:.4f} (14b vs 14c "
+        f"{abs(out['b']['bpp'] / out['c']['bpp'] - 1):.2e}, gate {BPP_RTOL}; 14a vs 14b "
+        f"{out['a']['bpp'] / out['b']['bpp'] - 1:+.2e}, reported)")
+    return out
+
+
 def main(argv=None) -> int:
     """`--phase12-only`: phases 0, 1, 3 and 4 (phase 12's yardstick), then
     phase 12, and no kernel table (a multi-card run of the new phase)."""
@@ -2483,8 +2668,10 @@ def main(argv=None) -> int:
     t0 = time.time()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    dyn_feats = dynamic_features(load_dynamic(), slices, 15, 8192)
     with torch.no_grad():
-        rows = kernel_phase(model, gen, slices)
+        rows = kernel_phase(model, gen, slices, dyn_feats)
+    del dyn_feats
     say(f"phase 2 kernels vs plain: {time.time() - t0:.2f} s")
     for k, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -2635,10 +2822,19 @@ def main(argv=None) -> int:
     for k in "ABCDE":
         rows[k]["imported_ckpt_launches"] = p13["13a"]["launches"][k]
         rows[k]["profile_launches"] = {t: r["launches"][k] for t, r in p13["13b"].items()}
+
+    # ---- 14. the dynamic-graph EHEM (JAX's default DGCNN)
+    p14 = dynamic_phase(counted, slices)
+    for i, k in enumerate("ABCDE"):
+        rows[k]["dynamic_launches"] = {t: p14[t]["launches"][i] for t in "abc"}
+    rows["D"]["dynamic_arms"] = p14["b"]["arms"]
+    rows["D"]["dynamic_wide_knn_ms"] = {t: p14[t]["knn_wide_ms"] for t in "abc"}
+    say(json.dumps({"dynamic": {t: {k: v for k, v in r.items() if k != "sha256"}
+                                for t, r in p14.items()}}))
     say(f"total wall {time.time() - t_start:.1f} s")
 
     for k, prefixes in (("A", ("mlp_sm90<",)), ("B", ("gemm_sm90<",)), ("C", ("gemm_sm90<",)),
-                        ("D", ("knn_topk_pruned<", "knn_topk_boxes<"))):
+                        ("D", ("knn_topk_pruned<", "knn_topk_boxes<", "knn_topk_wide<"))):
         rows[k]["ptxas"] = {k2: v for k2, v in resources.items() if k2.startswith(prefixes)}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

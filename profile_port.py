@@ -133,7 +133,7 @@ def main():
     ours = {k: sum(ms for n, ms, _ in kernels if k in n)
             for k in ("scp::gemm_sm90", "scp::mlp_sm90", "scp::gemm_bf16",
                       "scp::attn_core_bf16", "knn_topk", "knn_topk_boxes", "knn_topk_pruned",
-                      "row_sqnorm")}
+                      "knn_topk_wide", "row_sqnorm")}
     launches = {k: sum(c for n, _, c in kernels if k in n)
                 for k in ("scp::gemm_sm90", "scp::mlp_sm90", "scp::gemm_bf16")}
     # the Swin sublayers' bf16 GEMMs: B/C's Hopper projection GEMM, A's

@@ -59,6 +59,7 @@ from scp_tpu_torch.codec.slices import LevelSlices, normalize_positions, pad_row
 from scp_tpu_torch.codec.staged import gather_cond_rows, intervals, staged_cdfs
 from scp_tpu_torch.core.octree import occupancy_to_child_octants
 from scp_tpu_torch.models.ehem import EHEM
+from scp_tpu_torch.ops.knn_topk import takes_pruned_arm
 from scp_tpu_torch.utils.profiling import StageTimers
 
 # the attention numerics stamped in coding_params
@@ -67,6 +68,11 @@ ATTN_NUMERICS = "normalized"
 # wgmma kernels (ops/csrc/gemm_sm90.cuh, mlp.cu), which sum in another
 # order than the WMMA kernel before them
 GEMM_NUMERICS = "sm90"
+# kernel D's wide arm stamped in coding_params: its feature graphs' scores
+# take each dot product exactly, rounded once to f32 (ops/csrc/knn_topk.cu
+# rescores on the CUDA cores what its tensor cores let through), where the
+# brute-force arm before it summed an f32 chain
+KNN_WIDE_NUMERICS = "exactdot"
 BACKEND = "torch-cuda"  # stream stamp of the port (the CPU path stamps torch-cpu)
 MODES = ("rans", "staged", "full")
 
@@ -329,7 +335,15 @@ class EHEMCodec:
         names the Swin sublayers' bf16 GEMM kernels (wgmma on Hopper): a
         card stream written by the WMMA kernels before them, whose sums
         ran in another order, carries no such field and is refused.
-        `devices` is the lane-shard count (scp_tpu's `mesh=`)."""
+        `devices` is the lane-shard count (scp_tpu's `mesh=`).  `knnwide`
+        names the numerics of kernel D's wide arm and appears only where
+        that arm builds a graph (pallas_knn with the dynamic graph, or k >
+        32): a card stream of the brute-force arm before it carries no such
+        field and is refused, while static-graph streams keep their stamp.
+        """
+        geo = self.model.geo
+        knn_wide = self.model.pallas_knn and not all(
+            takes_pruned_arm(c, geo.k) for c in geo.graph_widths())
         return (
             f"group={self.group_size};"
             f"tiny={self.TINY_UNIFORM_MAX};"
@@ -339,7 +353,8 @@ class EHEMCodec:
             f"knn=exact;"
             f"staticknn={1 if self.model.static_knn else 0};"
             f"pallas_knn={1 if self.model.pallas_knn else 0};"
-            f"pallas_attn={1 if self.model.pallas_attn else 0};"
+            + (f"knnwide={KNN_WIDE_NUMERICS};" if knn_wide else "")
+            + f"pallas_attn={1 if self.model.pallas_attn else 0};"
             f"attn={ATTN_NUMERICS};"
             f"gemm={GEMM_NUMERICS};"
             f"kernels={'cuda' if self.device.type == 'cuda' else 'plain'};"

@@ -208,14 +208,19 @@ class GeoFeatGenerator(nn.Module):
         ec = self.edge_mlp2(torch.cat([pos3, ec], -1))
         return torch.cat([x, ec], -1)  # (B, N, 256)
 
+    def graph_widths(self) -> list:
+        """The feature width C of each KNN graph a forward builds: the
+        positions', then (dynamic graph) EdgeConv 2's and 3's inputs."""
+        if self.static_knn:
+            return [3]
+        return [3, self.conv2.conv.weight.shape[1] // 2, self.conv3.conv.weight.shape[1] // 2]
+
     def flops(self, batch: int, n: int) -> int:
         """Forward products on (batch, n) nodes, 2 per multiply-add: each
         KNN graph's scores (2 q.k) and the Dense layers (an EdgeConv's two
         projections are its 2C -> F Dense)."""
         rows = batch * n
-        graphs = [3] if self.static_knn else [3, self.conv2.conv.weight.shape[1] // 2,
-                                              self.conv3.conv.weight.shape[1] // 2]
-        f = sum(2 * batch * n * n * c for c in graphs)
+        f = sum(2 * batch * n * n * c for c in self.graph_widths())
         f += sum(conv.conv.flops(rows) for conv in (self.conv1, self.conv2, self.conv3))
         return f + sum(m.flops(rows) for m in (self.mlp2, self.mlp3, self.edge_mlp1,
                                                self.edge_mlp2))

@@ -100,24 +100,27 @@ _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+_PTXAS_STACK = re.compile(r"(\d+) bytes stack frame")
 
 
 def ptxas_report(src: str, name_part: str = "") -> list:
     """[{kernel (mangled), registers, spill_stores, spill_loads, static smem
-    bytes}] of each entry of `src`'s build whose name contains
-    `name_part`, read from its build log."""
+    bytes, stack frame bytes}] of each entry of `src`'s build whose name
+    contains `name_part`, read from its build log."""
     rows = []
     with open(log_path(src)) as fh:
         for line in fh:
             m = _PTXAS_ENTRY.search(line)
             if m:
                 rows.append({"kernel": m.group(1), "registers": None, "spill_stores": None,
-                             "spill_loads": None, "smem": 0})
+                             "spill_loads": None, "smem": 0, "stack": None})
                 continue
             if not rows:
                 continue
             if (m := _PTXAS_SPILL.search(line)) and rows[-1]["spill_stores"] is None:
                 rows[-1]["spill_stores"], rows[-1]["spill_loads"] = int(m.group(1)), int(m.group(2))
+                if st := _PTXAS_STACK.search(line):
+                    rows[-1]["stack"] = int(st.group(1))
             if m := _PTXAS_USED.search(line):
                 rows[-1]["registers"] = int(m.group(1))
                 if sm := _PTXAS_SMEM.search(line):

@@ -44,10 +44,15 @@ def top_k_lowest_ties(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _scores(q: torch.Tensor, q_sq: torch.Tensor, feats: torch.Tensor,
-            sq: torch.Tensor, round_bf16: bool) -> torch.Tensor:
+            sq: torch.Tensor, round_bf16: bool, exact_dot: bool = False) -> torch.Tensor:
     """2 q.k - |q|^2 - |k|^2 with f32 accumulation; `round_bf16` stores
-    the scores in bf16 (scp_tpu's _score_dtype for bf16 features)."""
-    s = 2.0 * torch.einsum("bqc,bmc->bqm", q.float(), feats.float())
+    the scores in bf16 (scp_tpu's _score_dtype for bf16 features).
+    `exact_dot` sums the dot products in f64 (exact for bf16 features)
+    and rounds each once to f32 instead."""
+    if exact_dot:
+        s = 2.0 * torch.einsum("bqc,bmc->bqm", q.double(), feats.double()).float()
+    else:
+        s = 2.0 * torch.einsum("bqc,bmc->bqm", q.float(), feats.float())
     s = s - q_sq[:, :, None] - sq[:, None, :]
     if round_bf16:
         s = s.to(torch.bfloat16).float()
@@ -55,7 +60,7 @@ def _scores(q: torch.Tensor, q_sq: torch.Tensor, feats: torch.Tensor,
 
 
 def chunked_knn(feats: torch.Tensor, k: int, sq: torch.Tensor,
-                round_bf16: bool) -> torch.Tensor:
+                round_bf16: bool, exact_dot: bool = False) -> torch.Tensor:
     """Exact top-k over score rows built in query tiles of 1024 rows,
     which bound the (B, tile, N) score matrix; sq (B, N) are the f32
     squared norms."""
@@ -63,7 +68,7 @@ def chunked_knn(feats: torch.Tensor, k: int, sq: torch.Tensor,
     out = []
     for s0 in range(0, n, _KNN_CHUNK):
         q = feats[:, s0 : s0 + _KNN_CHUNK]
-        s = _scores(q, sq[:, s0 : s0 + _KNN_CHUNK], feats, sq, round_bf16)
+        s = _scores(q, sq[:, s0 : s0 + _KNN_CHUNK], feats, sq, round_bf16, exact_dot)
         out.append(top_k_lowest_ties(s, k))
     return torch.cat(out, dim=1) if len(out) > 1 else out[0]
 

@@ -4,11 +4,13 @@
 knn_pallas (Pallas kernel `_knn_kernel`, pallas_call in `_knn_single`):
 feats (B, N, C), bf16 or f32, read as f32 -> (B, N, k) int64 indices of
 the k largest scores 2 q.k - |q|^2 - |k|^2, in descending order, ties to
-the lowest column (the first-max rule of pallas_knn._argmax_cols).
+the lowest column (the first-max rule of pallas_knn._argmax_cols).  It
+takes what the Pallas kernel takes: k <= 64 (a 2k <= 128-lane buffer
+there) and any C.
 
-The rounding is the Pallas kernel's as it runs compiled: the dot product
-and the squared norms are chains of fused multiply-adds over the columns
-in order, the score ((2 dot - |q|^2) - |k|^2) is rounded at each step.
+The rounding follows the Pallas kernel's as it runs compiled: the squared
+norms are chains of fused multiply-adds over the columns in order, the
+score ((2 dot - |q|^2) - |k|^2) is rounded at each step.
 The norms matter: on quantized positions many distances tie exactly, and
 a norm rounded otherwise (each product rounded, as scp_tpu's XLA path
 computes it) turns those ties into near ties that break the other way.
@@ -16,11 +18,21 @@ computes it) turns those ties into near ties that break the other way.
 Dispatch is by the tensor's device: a CPU tensor runs the plain version
 (`knn_topk_plain`: f32 score rows in 1024-row query tiles, then the
 (score, index) top-k of ops/knn.py); a CUDA tensor launches the kernel of
-csrc/knn_topk.cu or raises.  The plain version's dot product is the
-library's matrix product, whose summation order over wide rows may differ
-from the kernel's, so near ties may swap on the card at C > 3.
+csrc/knn_topk.cu or raises.
 
-Positions (C <= 4) take the kernel's pruned arm: rows in 32-row groups,
+The wide arm (C > 4, or k > 32) scores bf16 features on the tensor cores
+(f32 features on the CUDA cores) only to filter, in two passes: the first
+keeps each query's top k by that score, whose k-th less a bound on the
+score's error lies below the exact k-th; the second scores exactly (the
+products summed in f64, exact for bf16 features, the dot rounded once to
+f32) only the keys whose filter score plus the bound reaches it.  So its lists do
+not depend on any summation order, and the plain version computes the
+same scores (the dot products in f64, rounded once) and gives the same
+lists, exact ties included.  Its rows are read in 16-byte chunks, so
+features whose row is not a multiple of 16 bytes are padded with zero
+columns first (zero products: the scores do not move).
+
+Positions (C <= 4, k <= 32) take the kernel's pruned arm: rows in 32-row groups,
 each with its bounding box; a warp of 8 queries scores its own group
 first, then the others outward, and skips a group when no key in it can
 reach any of its 8 lists.  `group_boxes`, `group_score_bound` and
@@ -37,9 +49,9 @@ import torch
 from scp_tpu_torch.ops import _cuda
 from scp_tpu_torch.ops.knn import chunked_knn
 
-MAX_K = 32  # one warp holds a query's running top-k, one slot per lane
-MAX_C = 256
-PRUNED_MAX_C = 4  # widths up to this take the pruned arm (positions)
+MAX_K = 64  # a warp holds a query's running top-k, two slots per lane past 32
+PRUNED_MAX_C = 4  # widths up to this take the pruned arm (positions) ...
+PRUNED_MAX_K = 32  # ... at k up to this (one slot per lane); the rest the wide arm
 GROUP = 32  # key rows per group (one per lane)
 QPW = 8  # queries per warp
 # the skip bound's margin: 2^-19 (|q| + |k|max)^2 + FLT_MIN, the constants
@@ -114,18 +126,29 @@ def visit_order(g0: int, n_groups: int) -> np.ndarray:
     return np.concatenate([[g0], np.where(t <= 2 * m, near, far)])
 
 
+def takes_pruned_arm(c: int, k: int) -> bool:
+    """Whether the kernel builds a (B, N, c) graph of k neighbors on its
+    pruned arm (else its wide arm)."""
+    return c <= PRUNED_MAX_C and k <= PRUNED_MAX_K
+
+
 def knn_topk_plain(feats: torch.Tensor, k: int) -> torch.Tensor:
-    """Plain version: f32 scores (never rounded to bf16), exact top-k."""
-    return chunked_knn(feats, k, fma_sqnorm(feats), round_bf16=False)
+    """Plain version: f32 scores (never rounded to bf16), exact top-k.  The
+    dot products as each arm of the kernel rounds them: the library's f32
+    product on positions (the pruned arm's fma chain agrees with it there),
+    the exact dot rounded once to f32 elsewhere (the wide arm's)."""
+    return chunked_knn(feats, k, fma_sqnorm(feats), round_bf16=False,
+                       exact_dot=not takes_pruned_arm(feats.shape[-1], k))
 
 
 def knn_topk(feats: torch.Tensor, k: int, stats: torch.Tensor | None = None) -> torch.Tensor:
     """feats (B, N, C) -> (B, N, k) int64 nearest-neighbor indices.
 
     `stats`, an int64 tensor of one element on the features' device: the
-    pruned arm (C <= 4) adds to it the number of (warp, group) pairs it
-    scored, out of B * ceil(N / 8) * ceil(N / 32).  The indices never
-    depend on it; the C > 4 arm and the plain version leave it as it is.
+    pruned arm (C <= 4, k <= 32) adds to it the number of (warp, group)
+    pairs it scored, out of B * ceil(N / 8) * ceil(N / 32).  The indices
+    never depend on it; the wide arm and the plain version leave it as it
+    is.
 
     The output is integer and has no gradient (scp_tpu's kernel D has no
     VJP either): the features must not need one."""
@@ -138,8 +161,6 @@ def knn_topk(feats: torch.Tensor, k: int, stats: torch.Tensor | None = None) -> 
     b, n, c = feats.shape
     if not 1 <= k <= min(MAX_K, n):
         raise ValueError(f"knn_topk kernel: k={k} outside 1..min({MAX_K}, N={n})")
-    if not 1 <= c <= MAX_C:
-        raise ValueError(f"knn_topk kernel: C={c} outside 1..{MAX_C}")
     if feats.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"knn_topk kernel: expected bf16 or f32 features, got {feats.dtype}")
     _cuda.check_cuda_tensor("feats", feats, feats.dtype, (b, n, c))
@@ -150,7 +171,8 @@ def knn_topk(feats: torch.Tensor, k: int, stats: torch.Tensor | None = None) -> 
     lib = _cuda.load("knn_topk.cu")
     dev = feats.device
     sq = table = boxes = None
-    if c <= PRUNED_MAX_C:
+    arm = "pruned" if takes_pruned_arm(c, k) else "wide"
+    if arm == "pruned":
         # key rows (coordinates, |k|^2 in the last slot) padded to whole
         # groups, and per group the box with the largest |k|^2
         row = 4 if c < 4 else 8
@@ -158,6 +180,10 @@ def knn_topk(feats: torch.Tensor, k: int, stats: torch.Tensor | None = None) -> 
         table = torch.empty((b, g * GROUP, row), dtype=torch.float32, device=dev)
         boxes = torch.empty((b, g, 2 * row), dtype=torch.float32, device=dev)
     else:
+        pad = -c % (16 // feats.element_size())  # whole 16-byte chunks per row
+        if pad:
+            feats = torch.nn.functional.pad(feats, (0, pad))
+            c += pad
         sq = torch.empty((b, n), dtype=torch.float32, device=dev)
     out = torch.empty((b, n, k), dtype=torch.int64, device=dev)
 
@@ -171,7 +197,9 @@ def knn_topk(feats: torch.Tensor, k: int, stats: torch.Tensor | None = None) -> 
         )
     _cuda.check(lib, code, "knn_topk")
     knn_topk.launches += 1
+    knn_topk.arms[arm] += 1
     return out
 
 
 knn_topk.launches = 0
+knn_topk.arms = {"pruned": 0, "wide": 0}

@@ -2,6 +2,7 @@
 twin of the root bench.py's single-scan measurement).
 
     python -m scp_tpu_torch.tools.bench [--passes 5] [--pipeline K] [--devices N]
+        [--ckpt PATH] [--dynamic-knn] [--pallas-knn]
 
 The bench sweep (the ring-structured generator, seed 0, 120,000 points),
 spherical at lidar level 16 (kitti_qs(16)), the full-width EHEM from
@@ -28,6 +29,14 @@ lossless; one warm run, then the best of two.  The record gains
 `--devices N` codes on the sharded codec (EHEMCodec(devices=...)): N lane
 shards on cuda:0 .. cuda:N-1, wrapping around the visible cards (two
 shards on one card with N = 2 there); the record gains "devices": N.
+
+The model (the root bench.py's BENCH_CKPT and SCP_STATIC_KNN, as flags):
+`--dynamic-knn` turns static KNN off (EdgeConv 2 and 3 rebuild their
+graphs on their features, JAX's default DGCNN) and then loads
+checkpoints/ehem_synth_f16.npz, the checkpoint trained on that graph;
+`--ckpt PATH` loads another npz (with static KNN unless `--dynamic-knn`);
+`--pallas-knn` sends graphs of N >= 2048 rows to kernel D.  Any of them
+adds "model": {"ckpt", "static_knn", "pallas_knn"} to the record.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ N_POINTS = 120_000
 LIDAR_LEVEL = 16
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CKPT = os.path.join(HERE, "checkpoints", "ehem_synth_f16_sknn.npz")
+DYNAMIC_CKPT = os.path.join(HERE, "checkpoints", "ehem_synth_f16.npz")
 
 
 def _sync(device):
@@ -125,12 +135,38 @@ def shard_devices(n: int) -> list:
     return [f"cuda:{i % count}" for i in range(n)]
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--passes", type=int, default=int(os.environ.get("BENCH_PASSES", "5")))
     ap.add_argument("--pipeline", type=int, default=0, help="K clouds in flight (K > 1)")
     ap.add_argument("--devices", type=int, default=1, help="lane shards (sharded codec)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--ckpt", default=None,
+                    help="weights npz (default: the sknn checkpoint; ehem_synth_f16.npz "
+                         "with --dynamic-knn)")
+    ap.add_argument("--dynamic-knn", action="store_true",
+                    help="static KNN off: the dynamic graph (the root bench's SCP_STATIC_KNN=0)")
+    ap.add_argument("--pallas-knn", action="store_true",
+                    help="kernel D builds the graphs of N >= 2048 rows")
+    return ap.parse_args(argv)
+
+
+def ckpt_path(args) -> str:
+    return args.ckpt or (DYNAMIC_CKPT if args.dynamic_knn else CKPT)
+
+
+def build_model(args, device):
+    """The bench's bf16 EHEM with the flags' checkpoint and switches."""
+    import torch
+
+    from scp_tpu_torch.models.ehem import EHEM
+    from scp_tpu_torch.weights import load_into
+
+    return load_into(EHEM(static_knn=not args.dynamic_knn, pallas_knn=args.pallas_knn,
+                          dtype=torch.bfloat16, device=device), ckpt_path(args))
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
 
     import torch
 
@@ -144,9 +180,7 @@ def main(argv=None) -> int:
     from scp_tpu_torch.codec.ehem_codec import EHEMCodec
     from scp_tpu_torch.codec.slices import split_levels
     from scp_tpu_torch.core.preprocess import kitti_qs, preprocess_points
-    from scp_tpu_torch.models.ehem import EHEM
     from scp_tpu_torch.tools.train_bench_ckpt import synth_kitti
-    from scp_tpu_torch.weights import load_into
 
     t_start = time.time()
     pts = synth_kitti(np.random.default_rng(0), N_POINTS)
@@ -154,12 +188,16 @@ def main(argv=None) -> int:
     res = preprocess_points(pts, system="spher", qs=kitti_qs(LIDAR_LEVEL))
     slices = split_levels(res.context, angular=True)
     t_pre = time.time() - t0
-    model = load_into(EHEM(static_knn=True, dtype=torch.bfloat16, device=device), CKPT)
+    model = build_model(args, device)
     devices = shard_devices(args.devices) if args.devices > 1 else None
     codec = EHEMCodec(model, context_size=8192, devices=devices)
     out = measure(codec, slices, N_POINTS, args.passes)
     if devices:
         out["record"]["devices"] = args.devices
+    if args.ckpt or args.dynamic_knn or args.pallas_knn:
+        out["record"]["model"] = {
+            "ckpt": os.path.basename(ckpt_path(args)),
+            "static_knn": model.static_knn, "pallas_knn": model.pallas_knn}
     k = args.pipeline
     if k > 1:
         batch = [slices] + [

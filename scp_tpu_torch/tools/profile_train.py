@@ -101,7 +101,7 @@ class ranged_seams:
         fn = knn_topk.knn_topk
         self.saved.append((knn_topk, "knn_topk", fn))
         wrapped = ranged(fn, "D.forward")
-        wrapped.launches = fn.launches
+        wrapped.launches, wrapped.arms = fn.launches, fn.arms  # the arms count in place
         knn_topk.knn_topk = wrapped
         return self
 

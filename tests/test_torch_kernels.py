@@ -123,11 +123,38 @@ def test_kernel_d_duplicate_points_take_the_lowest_index(cuda_device):
 def test_kernel_d_refuses_what_it_does_not_take(cuda_device):
     feats = torch.randn(1, 2048, 3, device=cuda_device)
     with pytest.raises(ValueError):
-        tknn.knn_topk(feats, 33)
+        tknn.knn_topk(feats, 65)
     with pytest.raises(ValueError):
-        tknn.knn_topk(torch.randn(1, 2048, 300, device=cuda_device), 20)
+        tknn.knn_topk(feats[:, :40].contiguous(), 41)
     with pytest.raises(ValueError):
         tknn.knn_topk(feats.half(), 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,dtype", [
+    (144, 20, torch.bfloat16), (192, 20, torch.bfloat16), (144, 64, torch.bfloat16),
+    (192, 64, torch.bfloat16), (300, 20, torch.bfloat16), (192, 20, torch.float32),
+    (300, 64, torch.float32), (3, 40, torch.bfloat16), (1700, 20, torch.bfloat16)])
+def test_kernel_d_wide_arm_on_card(cuda_device, c, k, dtype):
+    """The wide arm at the Pallas kernel's reach: the dynamic graph's C =
+    144 / 192 at k = 20 and 64, C = 300 (rows padded to 16 bytes), f32
+    (the fma-chain filter), positions at k = 40 (past the pruned arm's
+    32) and C = 1700 (queries streamed beside the keys, not resident);
+    ragged N, deterministic.  Its scores take the exact dot rounded once,
+    as the plain version's do: bf16 lists equal the plain lists; f32 dots
+    round in f64 first, in another order on each side."""
+    g = torch.Generator(device=cuda_device).manual_seed(c + k)
+    n = 2048 + 37
+    feats = torch.randn(2, n, c, generator=g, device=cuda_device).to(dtype)
+    assert not tknn.takes_pruned_arm(c, k)
+    n0, w0 = tknn.knn_topk.launches, tknn.knn_topk.arms["wide"]
+    got = tknn.knn_topk(feats, k)
+    assert tknn.knn_topk.launches == n0 + 1 and tknn.knn_topk.arms["wide"] == w0 + 1
+    want = tknn.knn_topk_plain(feats, k)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    _same_neighbors(got, want, feats)
+    assert torch.equal(got, tknn.knn_topk(feats, k))
 
 
 def _pruned_case(feats, k):

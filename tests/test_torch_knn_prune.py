@@ -238,17 +238,22 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115knn_topk_prunedILi4
 ptxas info    : Function properties for _ZN12_GLOBAL__N_115knn_topk_prunedILi4EEEvPKfS2_iiiPlPy
     40 bytes stack frame, 40 bytes spill stores, 20 bytes spill loads
 ptxas info    : Used 80 registers, used 0 barriers
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_18knn_topkIfEEvPKT_PKfiiiPl' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_18knn_topkIfEEvPKT_PKfiiiPl
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__5ce17e4e_11_knn_topk_cu_36a9a9f813knn_topk_wideI13__nv_bfloat16Li2EEEvPKT_PKfiiiiPl' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__5ce17e4e_11_knn_topk_cu_36a9a9f813knn_topk_wideI13__nv_bfloat16Li2EEEvPKT_PKfiiiiPl
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 94 registers, used 1 barriers
+ptxas info    : Used 182 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__5ce17e4e_11_knn_topk_cu_36a9a9f813knn_topk_wideIfLi1EEEvPKT_PKfiiiiPl' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__5ce17e4e_11_knn_topk_cu_36a9a9f813knn_topk_wideIfLi1EEEvPKT_PKfiiiiPl
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
 """
 
 
 def test_chip_smoke_fails_on_a_spilling_pruned_knn_kernel(tmp_path, monkeypatch):
-    """chip_smoke.py's phase 1 reads the pruned arm's kernels (search by
-    row width, pre-pass by type and C) from the build log, leaves the
-    brute-force arm out, and fails on a spill."""
+    """chip_smoke.py's phase 1 reads kernel D's kernels from the build log
+    (the pruned arm's search by row width, its pre-pass by type and C, the
+    wide arm by type and list slots per lane), fails on a spill, and fails
+    when the wide arm is missing."""
     import chip_smoke
     from scp_tpu_torch.ops import _cuda
 
@@ -259,8 +264,14 @@ def test_chip_smoke_fails_on_a_spilling_pruned_knn_kernel(tmp_path, monkeypatch)
         chip_smoke.knn_resources(_cuda)
     log.write_text(PTXAS_LOG.replace("40 bytes spill stores, 20", "0 bytes spill stores, 0"))
     rows = chip_smoke.knn_resources(_cuda)
-    assert set(rows) == {"knn_topk_pruned<4>", "knn_topk_boxes<bf16,3>"}
+    assert set(rows) == {"knn_topk_pruned<4>", "knn_topk_boxes<bf16,3>",
+                         "knn_topk_wide<bf16,2>", "knn_topk_wide<f32,1>"}
     assert rows["knn_topk_pruned<4>"]["registers"] == 80
+    assert rows["knn_topk_wide<bf16,2>"]["registers"] == 182
+    assert rows["knn_topk_wide<bf16,2>"]["stack"] == 0
+    log.write_text(PTXAS_LOG.split("ptxas info    : Compiling entry function '_ZN44")[0])
+    with pytest.raises(AssertionError, match="no knn_topk_wide"):
+        chip_smoke.knn_resources(_cuda)
 
 
 def test_cpu_tensor_runs_the_plain_version_and_counts_nothing():

@@ -14,17 +14,43 @@ from scp_tpu_torch.ops import knn as tknn
 from scp_tpu_torch.ops import knn_topk as tknn_topk
 
 
-@pytest.mark.parametrize("c", [3, 16, 144])
-def test_plain_matches_pallas_index_exact(c):
+@pytest.mark.parametrize("c,k", [pytest.param(3, 20, id="3"), pytest.param(16, 20, id="16"),
+                                 pytest.param(144, 20, id="144"), (16, 64)])
+def test_plain_matches_pallas_index_exact(c, k):
     """Random f32 features have no tied scores: both sides score in f32,
     so the index lists agree exactly.  N = 1500 is ragged and spans two of
-    the Pallas kernel's 1024-key tiles."""
+    the Pallas kernel's 1024-key tiles; k = 64 fills the Pallas kernel's
+    128-lane buffer (2k) and takes two list slots per lane in kernel D."""
     rng = np.random.default_rng(c)
     feats = rng.normal(size=(1, 1500, c)).astype(np.float32)
-    want = np.asarray(knn_pallas(jnp.asarray(feats), 20, interpret=True))
-    got = tknn_topk.knn_topk_plain(torch.from_numpy(feats), 20)
-    assert got.dtype == torch.int64 and got.shape == (1, 1500, 20)
+    want = np.asarray(knn_pallas(jnp.asarray(feats), k, interpret=True))
+    got = tknn_topk.knn_topk_plain(torch.from_numpy(feats), k)
+    assert got.dtype == torch.int64 and got.shape == (1, 1500, k)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_plain_matches_pallas_at_c300_up_to_f32_rounding():
+    """C = 300 (rows padded to 16 bytes in kernel D): the lists agree on
+    every row but where two picks' exact distances differ by less than the f32
+    error bound of their scores (each a 300-term sum in another order on
+    each side, 2 C 2^-24 (|q| + |k|)^2); there the two may swap.  With
+    this input one row of 1500 swaps two neighbors whose exact distances
+    differ by 2.9e-5 (6e-8 relative)."""
+    c, k = 300, 20
+    rng = np.random.default_rng(c)
+    feats = rng.normal(size=(1, 1500, c)).astype(np.float32)
+    want = np.asarray(knn_pallas(jnp.asarray(feats), k, interpret=True))[0]
+    got = tknn_topk.knn_topk_plain(torch.from_numpy(feats), k).numpy()[0]
+    f = feats[0].astype(np.float64)
+    norm = np.sqrt((f * f).sum(-1))
+    rows = np.nonzero((got != want).any(-1))[0]
+    assert len(rows) <= 1e-3 * len(got)
+    for i in rows:
+        for a, b in zip(got[i], want[i]):
+            if a != b:
+                gap = abs(((f[a] - f[i]) ** 2).sum() - ((f[b] - f[i]) ** 2).sum())
+                bound = 2 * c * 2.0 ** -24 * (norm[i] + max(norm[a], norm[b])) ** 2
+                assert gap <= bound, (i, a, b, gap, bound)
 
 
 def test_duplicate_points_distance_multisets_and_lowest_index_first():
