@@ -29,8 +29,8 @@ subpackages mirror scp_tpu's:
             (single-scan throughput on the card), the bench-checkpoint
             recipe, the reference-checkpoint importer, precompile,
             profiles (MFU among them), probes, the scaling curve.
-  utils   — stage timers and profiler annotations; the build directory
-            and CPU devices (env).
+  utils   — spans, counters and stage timers (profiling); the build
+            directory and CPU devices (env).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with
 no card and no such argument they raise instead of falling back.

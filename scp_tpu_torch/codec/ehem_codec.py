@@ -60,7 +60,7 @@ from scp_tpu_torch.codec.staged import gather_cond_rows, intervals, staged_cdfs
 from scp_tpu_torch.core.octree import occupancy_to_child_octants
 from scp_tpu_torch.models.ehem import EHEM
 from scp_tpu_torch.ops.knn_topk import takes_pruned_arm
-from scp_tpu_torch.utils.profiling import StageTimers
+from scp_tpu_torch.utils import profiling
 
 # the attention numerics stamped in coding_params
 ATTN_NUMERICS = "normalized"
@@ -280,7 +280,7 @@ class EHEMCodec:
         self.last_devices = None
         self.context_size = context_size
         self._uni_rows = None
-        self.timers = StageTimers()
+        self.timers = profiling.StageTimers()
 
     # ---- static plumbing --------------------------------------------------
 
@@ -402,7 +402,8 @@ class EHEMCodec:
                 f"{self.coding_params()!r}"
             )
         if self.mode == "rans":
-            return rans.RansDecoder(payload, self.device)
+            with profiling.span("codec.upload"):
+                return rans.RansDecoder(payload, self.device)
         return ac.ArithmeticDecoder(payload, n_sym)
 
     def _uniform_rows(self):
@@ -450,25 +451,27 @@ class EHEMCodec:
         """Phase 1 of one call of the plan, each lane slice on its device:
         (rows1 on devices[0] in lane order, [(replica, f1, f2, first lane,
         lanes)] for phase 2)."""
-        rows, parts = [], []
-        shards = self._shards(lanes)
-        for model, l0, nl in shards:
-            s, dev = start + l0 * width, model.device
-            rows1, f1, f2 = self._phase1(model, data_buf[s : s + nl * width].to(dev),
-                                         pos_buf[s : s + nl * width].to(dev), 0, clip, lo,
-                                         scale, nl, width)
-            rows.append(rows1.to(self.device))
-            parts.append((model, f1, f2, l0, nl))
-        if len(shards) > 1:
-            self.last_devices = tuple(str(m.device) for m, _, _ in shards)
-        return (torch.cat(rows) if len(rows) > 1 else rows[0]), parts
+        with profiling.span("codec.phase1"):
+            rows, parts = [], []
+            shards = self._shards(lanes)
+            for model, l0, nl in shards:
+                s, dev = start + l0 * width, model.device
+                rows1, f1, f2 = self._phase1(model, data_buf[s : s + nl * width].to(dev),
+                                             pos_buf[s : s + nl * width].to(dev), 0, clip, lo,
+                                             scale, nl, width)
+                rows.append(rows1.to(self.device))
+                parts.append((model, f1, f2, l0, nl))
+            if len(shards) > 1:
+                self.last_devices = tuple(str(m.device) for m, _, _ in shards)
+            return (torch.cat(rows) if len(rows) > 1 else rows[0]), parts
 
     def _sharded_phase2(self, parts, occ):
         """Phase 2 of one call from its phase-1 slices and its group-1
         symbols occ (lanes, hw) on devices[0] -> rows2 on devices[0]."""
-        rows = [self._phase2(model, f1, f2, occ[l0 : l0 + nl].to(model.device)).to(self.device)
-                for model, f1, f2, l0, nl in parts]
-        return torch.cat(rows) if len(rows) > 1 else rows[0]
+        with profiling.span("codec.phase2"):
+            rows = [self._phase2(model, f1, f2, occ[l0 : l0 + nl].to(model.device))
+                    .to(self.device) for model, f1, f2, l0, nl in parts]
+            return torch.cat(rows) if len(rows) > 1 else rows[0]
 
     @staticmethod
     def _cat_pad(parts, n: int):
@@ -627,12 +630,13 @@ class EHEMCodec:
     @torch.no_grad()
     def encode_to_stream(self, slices: LevelSlices, lidar_clip=None):
         """Encode a sliced cloud -> (stream_bytes, bit_count, seconds)."""
-        t0 = time.time()
-        enc = self.new_stream_encoder()
-        self.encode_into(enc, slices, lidar_clip)
-        with self.timers.stage("finish_chain"):
-            stream, bits, _ = self.finish_stream(enc)
-        return stream, bits, time.time() - t0
+        with profiling.span("codec.encode"):
+            t0 = time.time()
+            enc = self.new_stream_encoder()
+            self.encode_into(enc, slices, lidar_clip)
+            with self.timers.stage("finish_chain"):
+                stream, bits, _ = self.finish_stream(enc)
+            return stream, bits, time.time() - t0
 
     @torch.no_grad()
     def encode_into(self, enc, slices: LevelSlices, lidar_clip=None) -> float:
@@ -782,10 +786,11 @@ class EHEMCodec:
                     enc.append_group(self._cat_pad(sf_o, no), no)
             if level < max_level:
                 # child cell size 2^(max_level - (level+1) + 1)
-                data_buf, pos_buf = _expand_stream(
-                    data_buf, pos_buf, occ_dev, off, n, sizes[li + 1], level + 1,
-                    1 << (max_level - level), _expand_width(plans, b_cap, li, sizes),
-                )
+                with profiling.span("codec.expand"):
+                    data_buf, pos_buf = _expand_stream(
+                        data_buf, pos_buf, occ_dev, off, n, sizes[li + 1], level + 1,
+                        1 << (max_level - level), _expand_width(plans, b_cap, li, sizes),
+                    )
             off += n
 
     # ---- decode -----------------------------------------------------------
@@ -798,18 +803,19 @@ class EHEMCodec:
         `ground_truth` enables the lossless check.  The staged and full
         modes decode level by level on the host loop, which derives every
         shape from the decoded symbols (level_sizes unused)."""
-        if self.mode != "rans":
-            return self._decode_host_loop(dec, max_level, pos_mm, angular, lidar_clip,
-                                          ground_truth)
-        if level_sizes is None:
-            raise ValueError("rans decode needs the header's per-level node counts")
-        gen = self.decode_steps(dec, max_level, pos_mm, angular, lidar_clip,
-                                ground_truth, level_sizes)
-        while True:
-            try:
-                next(gen)
-            except StopIteration as e:
-                return e.value
+        with profiling.span("codec.decode"):
+            if self.mode != "rans":
+                return self._decode_host_loop(dec, max_level, pos_mm, angular, lidar_clip,
+                                              ground_truth)
+            if level_sizes is None:
+                raise ValueError("rans decode needs the header's per-level node counts")
+            gen = self.decode_steps(dec, max_level, pos_mm, angular, lidar_clip,
+                                    ground_truth, level_sizes)
+            while True:
+                try:
+                    next(gen)
+                except StopIteration as e:
+                    return e.value
 
     def decode_steps(self, dec, max_level, pos_mm, angular, lidar_clip=None,
                      ground_truth=None, level_sizes=None):
@@ -837,10 +843,11 @@ class EHEMCodec:
                 flat = dec.decode_group(self._uniform_rows(), n)
                 out = _emit_flat(out, flat, off, n)
                 if level < max_level:
-                    data_buf, pos_buf = _expand_flat(
-                        data_buf, pos_buf, flat, n, sizes[li + 1], level + 1,
-                        1 << (max_level - level), _expand_width(plans, b_cap, li, sizes),
-                    )
+                    with profiling.span("codec.expand"):
+                        data_buf, pos_buf = _expand_flat(
+                            data_buf, pos_buf, flat, n, sizes[li + 1], level + 1,
+                            1 << (max_level - level), _expand_width(plans, b_cap, li, sizes),
+                        )
                 off += n
                 yield li
                 continue
@@ -869,14 +876,16 @@ class EHEMCodec:
 
             out = _emit_parity(out, evens_cap, odds_cap, off, n)
             if level < max_level:
-                data_buf, pos_buf = _expand_parity(
-                    data_buf, pos_buf, evens_cap, odds_cap, n, sizes[li + 1], level + 1,
-                    1 << (max_level - level), _expand_width(plans, b_cap, li, sizes),
-                )
+                with profiling.span("codec.expand"):
+                    data_buf, pos_buf = _expand_parity(
+                        data_buf, pos_buf, evens_cap, odds_cap, n, sizes[li + 1], level + 1,
+                        1 << (max_level - level), _expand_width(plans, b_cap, li, sizes),
+                    )
             off += n
             yield li
 
-        codes = out[:total].cpu().numpy().astype(np.int16)
+        with profiling.span("codec.fetch"):
+            codes = out[:total].cpu().numpy().astype(np.int16)
         if ground_truth is not None:
             bad = np.nonzero(np.asarray(ground_truth)[:total] != codes)[0]
             if bad.size:

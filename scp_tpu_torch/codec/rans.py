@@ -34,6 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from scp_tpu_torch.utils import profiling
+
 RANS_L = 1 << 23
 HALF_L = 1 << 15  # L >> 8
 K_LANES = 1024
@@ -57,6 +59,11 @@ def gather_start_freq(rows: torch.Tensor, syms: torch.Tensor) -> torch.Tensor:
     lo = torch.gather(r, -1, s)[..., 0]
     hi = torch.gather(r, -1, s + 1)[..., 0]
     return torch.stack([lo, hi - lo], dim=-1)
+
+
+def _chunk_steps(base: int, n: int) -> int:
+    """Coder steps of the chunk starting at symbol `base` of an n-symbol group."""
+    return min(CHUNK_STEPS, -(-(n - base) // K_LANES))
 
 
 def _decode_chunk(states, ptr, stream, rows, base: int, n: int):
@@ -150,23 +157,27 @@ class RansEncoder:
     def finish(self) -> bytes:
         states = torch.full((K_LANES,), RANS_L, dtype=torch.int64, device=self.device)
         rev_blocks = []  # (block, total) in reverse stream order
-        for sf, n in reversed(self.groups):
-            for c in reversed(range(-(-n // CHUNK))):
-                block, total, states = _encode_chunk(
-                    states, sf[c * CHUNK : (c + 1) * CHUNK], c * CHUNK, n
-                )
-                rev_blocks.append((block, total))
+        with profiling.span("rans.encode"):
+            for sf, n in reversed(self.groups):
+                for c in reversed(range(-(-n // CHUNK))):
+                    block, total, states = _encode_chunk(
+                        states, sf[c * CHUNK : (c + 1) * CHUNK], c * CHUNK, n
+                    )
+                    rev_blocks.append((block, total))
+                    profiling.count("rans.steps", _chunk_steps(c * CHUNK, n))
         # lanes beyond the largest group were never touched: store only the
         # used prefix
         used = min(max((n for _, n in self.groups), default=0), K_LANES)
-        head = states[:used].cpu().numpy().astype("<u4").tobytes()
+        with profiling.span("codec.fetch"):
+            head = states[:used].cpu().numpy().astype("<u4").tobytes()
         body = b""
         if rev_blocks:
             blocks = list(reversed(rev_blocks))
-            totals = torch.stack([t for _, t in blocks]).cpu().tolist()
-            body = torch.cat(
-                [b[:t] for (b, _), t in zip(blocks, totals)]
-            ).cpu().numpy().tobytes()
+            with profiling.span("codec.fetch"):
+                totals = torch.stack([t for _, t in blocks]).cpu().tolist()
+            parts = torch.cat([b[:t] for (b, _), t in zip(blocks, totals)])
+            with profiling.span("codec.fetch"):
+                body = parts.cpu().numpy().tobytes()
         return np.uint16(used).tobytes() + head + body
 
 
@@ -196,18 +207,20 @@ class RansDecoder:
         Returns (n_pad,) uint8 device symbols (valid through n)."""
         if rows.shape[0] % CHUNK:
             raise ValueError(f"group of {rows.shape[0]} rows is not a CHUNK multiple")
-        outs = []
-        for c in range(-(-n // CHUNK)):
-            rows_c = rows[c * CHUNK : (c + 1) * CHUNK].reshape(CHUNK_STEPS, K_LANES, 256)
-            syms, self.states, self.ptr = _decode_chunk(
-                self.states, self.ptr, self.stream, rows_c, c * CHUNK, n
-            )
-            outs.append(syms.reshape(-1))
-        got = len(outs) * CHUNK
-        if got < rows.shape[0]:
-            outs.append(torch.zeros(rows.shape[0] - got, dtype=torch.uint8,
-                                    device=rows.device))
-        return torch.cat(outs) if len(outs) > 1 else outs[0]
+        with profiling.span("rans.decode"):
+            outs = []
+            for c in range(-(-n // CHUNK)):
+                rows_c = rows[c * CHUNK : (c + 1) * CHUNK].reshape(CHUNK_STEPS, K_LANES, 256)
+                syms, self.states, self.ptr = _decode_chunk(
+                    self.states, self.ptr, self.stream, rows_c, c * CHUNK, n
+                )
+                outs.append(syms.reshape(-1))
+                profiling.count("rans.steps", _chunk_steps(c * CHUNK, n))
+            got = len(outs) * CHUNK
+            if got < rows.shape[0]:
+                outs.append(torch.zeros(rows.shape[0] - got, dtype=torch.uint8,
+                                        device=rows.device))
+            return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 
 def pad_to_chunk(n: int) -> int:

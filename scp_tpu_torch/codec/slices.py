@@ -14,6 +14,8 @@ import dataclasses
 
 import numpy as np
 
+from scp_tpu_torch.utils import profiling
+
 BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
 
@@ -79,7 +81,11 @@ def normalize_positions(pos_int, mm, max_level: int, angular: bool) -> np.ndarra
 
 def split_levels(ctx: np.ndarray, angular: bool, lidar_level_clip: int | None = None) -> LevelSlices:
     """ctx: raw (N, 4, 6) shard (occupancy still 1..255)."""
-    ctx = np.asarray(ctx)
+    with profiling.span("preprocess.split"):
+        return _split_levels(np.asarray(ctx), angular, lidar_level_clip)
+
+
+def _split_levels(ctx: np.ndarray, angular: bool, lidar_level_clip) -> LevelSlices:
     occ = ctx[:, :, 0].astype(np.int32) - 1  # 0..254; pad 256 -> 255
     levels = ctx[:, :, 1].astype(np.int32)
     octants = ctx[:, :, 2].astype(np.int32)

@@ -21,6 +21,7 @@ from scp_tpu_torch.core.morton import axis_bits
 from scp_tpu_torch.core.octree import OctreeArrays, build_octree, gen_context, morton_prefix_filter
 from scp_tpu_torch.core.pointcloud import read_points
 from scp_tpu_torch.core.quantize import QuantGrid, make_grid
+from scp_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -55,6 +56,13 @@ def preprocess_points(
     native: bool = True,
 ) -> PreprocResult:
     """`native` picks the octree builder (core.octree.build_octree)."""
+    with profiling.span("preprocess"):
+        return _preprocess(points, system, qs, offset, qlevel, rotation, normalize,
+                           morton_path, native)
+
+
+def _preprocess(points, system, qs, offset, qlevel, rotation, normalize, morton_path,
+                native) -> PreprocResult:
     p = np.asarray(points, dtype=np.float64)
     if normalize:
         p = p - p.mean(axis=0)
@@ -62,23 +70,25 @@ def preprocess_points(
     if rotation:
         p = rotate_axes(p)
 
-    grid = make_grid(p, system=system, qs=qs, offset=offset, qlevel=qlevel)
-    q = np.unique(grid.to_grid(p), axis=0)
+    with profiling.span("preprocess.quantize"):
+        grid = make_grid(p, system=system, qs=qs, offset=offset, qlevel=qlevel)
+        q = np.unique(grid.to_grid(p), axis=0)
 
-    t0 = time.perf_counter()
-    if morton_path is not None:
-        # Multi-level split: keep only points whose radial-axis Morton bit
-        # prefix matches; the octree keeps the FULL cloud's bit depth so the
-        # three subtrees tile one global grid (reference Octree.py:184-221).
-        bits = axis_bits(q)
-        q_sub = q[morton_prefix_filter(q, morton_path)]
-        tree = build_octree(q_sub, max_level=bits, native=native)
-        q = q_sub
-    else:
-        tree = build_octree(q, native=native)
-    octree_s = time.perf_counter() - t0
+    with profiling.span("preprocess.octree"):
+        t0 = time.perf_counter()
+        if morton_path is not None:
+            # Multi-level split: keep only points whose radial-axis Morton bit
+            # prefix matches; the octree keeps the FULL cloud's bit depth so the
+            # three subtrees tile one global grid (reference Octree.py:184-221).
+            bits = axis_bits(q)
+            q_sub = q[morton_prefix_filter(q, morton_path)]
+            tree = build_octree(q_sub, max_level=bits, native=native)
+            q = q_sub
+        else:
+            tree = build_octree(q, native=native)
+        octree_s = time.perf_counter() - t0
+        ctx = gen_context(tree, k=4)
 
-    ctx = gen_context(tree, k=4)
     return PreprocResult(
         context=ctx,
         tree=tree,

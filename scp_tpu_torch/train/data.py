@@ -29,6 +29,8 @@ import threading
 
 import numpy as np
 
+from scp_tpu_torch.utils import profiling
+
 EHEM_LEN_BUCKETS = (512, 1024, 2048, 4096, 8192)
 
 
@@ -183,7 +185,8 @@ def prefetch(generator, depth: int = 2):
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with profiling.span("train.load_wait"):
+            item = q.get()
         if item is stop:
             return
         if isinstance(item, _Raise):

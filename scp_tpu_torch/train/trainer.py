@@ -47,6 +47,7 @@ from scp_tpu_torch.config import Config, save_config
 from scp_tpu_torch.models import build_model
 from scp_tpu_torch.models.layers import flax_init_
 from scp_tpu_torch.train import distributed
+from scp_tpu_torch.utils import profiling
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
@@ -156,40 +157,49 @@ class Trainer:
     def train_step(self, batch, timings: dict | None = None):
         """One Adam step on `batch` (this rank's rows of the global batch);
         returns the global batch's mean loss (a 0-d tensor on the device).
-        With `timings`, synchronizes and adds the forward, backward,
-        all-reduce (data-parallel only) and update seconds to it."""
+        Its parts are the spans train.forward, train.backward,
+        train.allreduce (data-parallel only) and train.update.  With
+        `timings`, each part synchronizes before it ends and its seconds
+        are added to timings[part]."""
         if self.opt is None:
             raise RuntimeError("call init_state first")
-        t = time.perf_counter()
-        self.opt.zero_grad(set_to_none=True)
-        self.model.train()
-        data, pos, label = self._batch(batch)
-        loss = cross_entropy_bits(self._forward(data, pos), label)
-        if timings is not None:
-            _sync(self.device)
-            timings["forward"] = timings.get("forward", 0.0) + time.perf_counter() - t
-            t = time.perf_counter()
-        loss.backward()
-        if timings is not None:
-            _sync(self.device)
-            timings["backward"] = timings.get("backward", 0.0) + time.perf_counter() - t
-            t = time.perf_counter()
+        with self._part("forward", timings):
+            self.opt.zero_grad(set_to_none=True)
+            self.model.train()
+            data, pos, label = self._batch(batch)
+            loss = cross_entropy_bits(self._forward(data, pos), label)
+            self._fence(timings)
+        with self._part("backward", timings):
+            loss.backward()
+            self._fence(timings)
         if self.world > 1:
-            distributed.average_gradients(self.model.parameters())
-            loss = distributed.global_mean(loss)
-            if timings is not None:
-                _sync(self.device)
-                timings["allreduce"] = timings.get("allreduce", 0.0) + time.perf_counter() - t
-                t = time.perf_counter()
-        lr = self.schedule(self.step)  # the count before the update, as optax reads it
-        for group in self.opt.param_groups:
-            group["lr"] = lr
-        self.opt.step()
-        self.step += 1
+            with self._part("allreduce", timings):
+                distributed.average_gradients(self.model.parameters())
+                loss = distributed.global_mean(loss)
+                self._fence(timings)
+        with self._part("update", timings):
+            lr = self.schedule(self.step)  # the count before the update, as optax reads it
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+            self.opt.step()
+            self.step += 1
+            self._fence(timings)
+        return loss.detach()
+
+    @staticmethod
+    def _part(name: str, timings: dict | None):
+        """The span of one part of a step; timed into timings[name] when asked."""
+        if timings is None:
+            return profiling.span(f"train.{name}")
+
+        def add(seconds):
+            timings[name] = timings.get(name, 0.0) + seconds
+
+        return profiling.timed(f"train.{name}", add)
+
+    def _fence(self, timings: dict | None) -> None:
         if timings is not None:
             _sync(self.device)
-            timings["update"] = timings.get("update", 0.0) + time.perf_counter() - t
-        return loss.detach()
 
     # -- validation ---------------------------------------------------------
 

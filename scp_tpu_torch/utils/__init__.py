@@ -1,2 +1,2 @@
-"""Utilities of the port: stage timers and profiler annotations
-(profiling), the build directory and CPU devices (env)."""
+"""Utilities of the port: spans, counters and stage timers (profiling),
+the build directory and CPU devices (env)."""
