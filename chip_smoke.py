@@ -201,7 +201,7 @@ Phases, each printed as it ends (any failure exits non-zero):
           positive, every MFU in (0, 100] against the bf16 peak, A, B and
           C launched in the timed calls;
      13c. `tools.precompile --points 120000 --levels 16` in a fresh
-          process: all four kernel libraries and the native one reused,
+          process: all five kernel libraries and the native one reused,
           its phase-shape count equal to phase 4's plan; seed and re-warm
           times printed.
  14. the dynamic-graph EHEM (JAX's default DGCNN: static KNN off, EdgeConv
@@ -219,6 +219,13 @@ Phases, each printed as it ends (any failure exits non-zero):
           14c's (both score the graphs in f32; 14a's gap to them is
           printed, not gated).
      Walls and the KNN seam's CUDA-event time by graph width per roundtrip.
+ 15. the rANS coder's kernels (ops/csrc/rans.cu) against the plain step
+     loops of codec/rans.py, both on the card, at the main path's shapes:
+     one 65,536-symbol chunk and the L16 level's even-parity group (rows
+     from logits_to_cdf of random logits, symbols drawn from them): the
+     same stream bytes, symbols and (states, ptr); CUDA-event times of a
+     decode group and an encode, kernel and plain loops; the kernels'
+     launches in phase 4's roundtrip; their registers and spills (phase 1).
 
 Phase 2 also holds A, B, C and E in f32 against their plain versions
 (atol = rtol = 1e-4), and times the attention core that B, C and E share
@@ -2408,6 +2415,7 @@ def profile_phase(smi: str) -> dict:
 def precompile_phase(model, slices) -> dict:
     """13c (see the module docstring)."""
     from scp_tpu_torch.codec.ehem_codec import EHEMCodec
+    from scp_tpu_torch.ops import _cuda
 
     plans, _, _ = EHEMCodec(model, context_size=8192)._plan_levels(slices.level_sizes)
     shapes = len({(la, w) for calls, _ in plans for _, la, w in calls})
@@ -2422,7 +2430,8 @@ def precompile_phase(model, slices) -> dict:
     lines = proc.stdout.strip().splitlines()
     r = json.loads(lines[-1])
     libs, cls = r["libraries"], r["classes"][0]
-    if libs["kernels"]["cold"] or len(libs["kernels"]["cached"]) != 4 or libs["native"] != "cached":
+    if (libs["kernels"]["cold"] or set(libs["kernels"]["cached"]) != set(_cuda.SOURCES)
+            or libs["native"] != "cached"):
         raise AssertionError(f"13c: a library was not reused: {libs}")
     if cls["phase_shapes"] != shapes:
         raise AssertionError(f"13c: {cls['phase_shapes']} phase shapes, phase 4's plan {shapes}")
@@ -2602,6 +2611,104 @@ def dynamic_phase(counted, slices) -> dict:
     return out
 
 
+# ---- phase 15: the rANS coder's kernels ----------------------------------------
+
+
+def rans_launches() -> int:
+    from scp_tpu_torch.codec import rans
+
+    return rans.encode_kernel.launches + rans.decode_group_kernel.launches
+
+
+def rans_resources(cuda):
+    """Registers and spills of the coder's two kernels; fails on any spill."""
+    rows = {name: r for name in ("rans_decode_group", "rans_encode")
+            for r in cuda.ptxas_report("rans.cu", name)}
+    if len(rows) != 2:
+        raise AssertionError(f"rans kernels in the build log: {sorted(rows)}")
+    return check_spills(rows, "rANS")
+
+
+def rans_group(gen, n: int):
+    """One group of n symbols on the card: rows as the codec makes them
+    (logits_to_cdf of random logits), symbols drawn from them by the
+    decode rule, and their (cdf_low, freq) rows."""
+    from scp_tpu_torch.codec import rans
+    from scp_tpu_torch.codec.ehem_codec import logits_to_cdf
+
+    n_pad = rans.pad_to_chunk(n)
+    rows = torch.zeros((n_pad, 256), dtype=torch.int32, device="cuda")
+    syms = torch.zeros(n_pad, dtype=torch.int64, device="cuda")
+    for a in range(0, n, rans.CHUNK):  # (CHUNK, 256) int64 at a time
+        b = min(a + rans.CHUNK, n)
+        rows[a:b] = logits_to_cdf(3.0 * torch.randn(b - a, 255, generator=gen, device="cuda"))
+        u = torch.randint(0, 1 << 16, (b - a, 1), generator=gen, device="cuda")
+        syms[a:b] = (rans._row_i32(rows[a:b])[:, :255] <= u).sum(-1) - 1
+    return rows, syms, rans.gather_start_freq(rows, syms)
+
+
+def rans_phase(slices, l16_launches: int, resources: dict) -> dict:
+    """15 (see the module docstring)."""
+    from scp_tpu_torch.codec import rans
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    n_l16 = (slices.level_sizes[-1] + 1) // 2  # the last level's even-parity group
+    out = {"l16_roundtrip_launches": l16_launches, "ptxas": resources}
+    for tag, n in (("chunk", rans.CHUNK), ("l16_group", n_l16)):
+        rows, syms, sf = rans_group(gen, n)
+        used = min(n, rans.K_LANES)
+        enc = rans.RansEncoder("cuda")
+        enc.append_group(sf, n)
+        payload = enc.finish()
+        head, body = enc._finish_plain(used)
+        if payload != np.uint16(used).tobytes() + head + body:
+            raise AssertionError(f"phase 15 {tag}: the kernel's stream differs from the plain loops'")
+        kern, plain = rans.RansDecoder(payload, "cuda"), rans.RansDecoder(payload, "cuda")
+        got, want = kern.decode_group(rows, n), plain._decode_group_plain(rows, n)
+        if not (torch.equal(got, want) and torch.equal(got[:n].long(), syms[:n])
+                and torch.equal(kern.states, plain.states) and torch.equal(kern.ptr, plain.ptr)):
+            raise AssertionError(f"phase 15 {tag}: the kernel's decode differs from the plain loops'")
+        reps = 20
+        init = rans.RansDecoder(payload, "cuda")
+        # each timed decode starts from the stream's first state
+        fresh = iter([(init.states.clone(), init.ptr.clone()) for _ in range(reps + 1)])
+        dec_ms = cuda_time_ms(
+            lambda: rans.decode_group_kernel(*next(fresh), kern.stream, rows, n), reps)
+
+        def plain_decode():
+            plain.states, plain.ptr = init.states.clone(), init.ptr.clone()
+            return plain._decode_group_plain(rows, n)
+
+        dec_plain_ms = cuda_time_ms(plain_decode, 2)
+        enc_ms = cuda_time_ms(lambda: rans.encode_kernel(enc.groups, "cuda"), reps)
+        finish_ms = cuda_time_ms(enc.finish, reps)
+        enc_plain_ms = cuda_time_ms(lambda: enc._finish_plain(used), 2)
+        steps = -(-n // rans.K_LANES)
+        # least bytes: decode needs the sector of a row that holds the two
+        # entries around the slot, the stream, and writes a byte a symbol;
+        # encode reads 16 bytes a symbol and writes the stream.  The serial
+        # chain (a dependent row search and a block scan a step) binds both
+        # far above these bounds
+        dec_bound, dec_by = bound_ms(n * (32 + 1) + len(body), 0)
+        enc_bound, enc_by = bound_ms(n * 16 + len(body) + 8 * rans.K_LANES, 0)
+        out[tag] = dict(symbols=n, steps=steps, bytes=len(payload),
+                        decode_ms=dec_ms, decode_plain_ms=dec_plain_ms,
+                        decode_us_per_step=1e3 * dec_ms / steps, decode_bound_ms=dec_bound,
+                        encode_ms=enc_ms, finish_ms=finish_ms, encode_plain_ms=enc_plain_ms,
+                        encode_us_per_step=1e3 * enc_ms / steps, encode_bound_ms=enc_bound,
+                        bound_by=dec_by)
+        say(f"  15 {tag}: {n} symbols, {steps} steps; decode kernel {dec_ms:.4f} ms "
+            f"({1e3 * dec_ms / steps:.2f} us a step), plain {dec_plain_ms:.2f} ms, bound "
+            f"{dec_bound:.4f} ms ({dec_by}); encode kernel {enc_ms:.4f} ms, finish() "
+            f"{finish_ms:.4f} ms, plain {enc_plain_ms:.2f} ms, bound {enc_bound:.4f} ms")
+        del rows, syms, sf, enc, kern, plain, init, fresh
+    say(f"phase 15 rANS kernels: identical to the plain loops; {l16_launches} launches an L16 "
+        f"roundtrip; {time.time() - t0:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     """`--phase12-only`: phases 0, 1, 3 and 4 (phase 12's yardstick), then
     phase 12, and no kernel table (a multi-card run of the new phase)."""
@@ -2633,6 +2740,7 @@ def main(argv=None) -> int:
     say(f"phase 1 build: {built['seconds']:.2f} s, cold {built['cold']}, "
         f"cached {built['cached']}")
     resources = {**sm90_resources(_cuda), **knn_resources(_cuda)}
+    rans_res = rans_resources(_cuda)
 
     # ---- 3 (needed by 2). the model
     t0 = time.time()
@@ -2698,7 +2806,9 @@ def main(argv=None) -> int:
             f"max_abs_err {r['f32_max_abs_err']:.3g}")
 
     # ---- 4. the main path: one encode, one decode
+    r0 = rans_launches()
     p4 = roundtrip(EHEMCodec(model, context_size=8192), slices, counted.values())
+    p4_rans = rans_launches() - r0
     say(f"phase 4 roundtrip: lossless, bpp={p4['bpp']:.4f}, nodes={n_nodes}, "
         f"bytes={p4['bytes']}, encode {p4['encode_s']:.3f} s, decode {p4['decode_s']:.3f} s, "
         f"kernel launches A/B/C/D/E = {p4['launches']}")
@@ -2831,11 +2941,26 @@ def main(argv=None) -> int:
     rows["D"]["dynamic_wide_knn_ms"] = {t: p14[t]["knn_wide_ms"] for t in "abc"}
     say(json.dumps({"dynamic": {t: {k: v for k, v in r.items() if k != "sha256"}
                                 for t, r in p14.items()}}))
+
+    # ---- 15. the rANS coder's kernels
+    p15 = rans_phase(slices, p4_rans, rans_res)
+    chunk = p15["chunk"]
+    rows["R"] = dict(
+        name="rans_decode_group / rans_encode", route="cuda",
+        source="scp_tpu_torch/ops/csrc/rans.cu",
+        replaces="no pallas_call: lax.scan in scp_tpu/codec/rans.py (_decode_chunk, "
+                 "_encode_chunk)", launches=p4_rans, max_abs_err=0,
+        ms=chunk["decode_ms"], plain_ms=chunk["decode_plain_ms"],
+        bound_ms=chunk["decode_bound_ms"], bound_by=chunk["bound_by"], library_ms=None,
+        library_note="no PyTorch call codes rANS",
+        bound_note="bytes bound; the serial chain of 64 dependent steps a chunk binds",
+        **{k: v for k, v in p15.items() if k != "ptxas"})
     say(f"total wall {time.time() - t_start:.1f} s")
 
     for k, prefixes in (("A", ("mlp_sm90<",)), ("B", ("gemm_sm90<",)), ("C", ("gemm_sm90<",)),
                         ("D", ("knn_topk_pruned<", "knn_topk_boxes<", "knn_topk_wide<"))):
         rows[k]["ptxas"] = {k2: v for k2, v in resources.items() if k2.startswith(prefixes)}
+    rows["R"]["ptxas"] = rans_res
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{**{k: r[k] for k in keys}, **{k: v for k, v in r.items() if k not in keys}}

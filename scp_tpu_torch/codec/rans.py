@@ -27,6 +27,13 @@ Interleaving contract (identical to scp_tpu, so the bytes are too):
 States stay below 2^31 and every intermediate below 2^40, so int64
 tensors carry the uint32 arithmetic exactly.  CDF rows are int32 tensors
 holding the uint16 values (top entry 65536 stored wrapped as 0).
+
+A coder on the CPU runs the plain step loops below (`_decode_chunk`,
+`_encode_chunk`, the twins of scp_tpu's lax.scans).  A coder on a CUDA
+device runs the hand-written kernels of `ops/csrc/rans.cu` instead, or
+raises: one launch per `decode_group` (every chunk of the group) and one
+per `finish` (every group of the stream), with the same bytes, symbols and
+(states, ptr).
 """
 
 from __future__ import annotations
@@ -136,6 +143,63 @@ def _encode_chunk(states, sf, base: int, n: int):
     return buf[:-1].to(torch.uint8), total, states
 
 
+def decode_group_kernel(states, ptr, stream, rows, n: int) -> torch.Tensor:
+    """Kernel decode of one group: rows (n_pad, 256) int32, n_pad a CHUNK
+    multiple -> (n_pad,) uint8 symbols (0 past n).  states (K,) and ptr ()
+    int64 are updated in place, on the device."""
+    from scp_tpu_torch.ops import _cuda
+
+    n_pad = rows.shape[0]
+    _cuda.check_cuda_tensor("rows", rows, torch.int32, (n_pad, 256))
+    _cuda.check_cuda_tensor("states", states, torch.int64, (K_LANES,))
+    _cuda.check_cuda_tensor("ptr", ptr, torch.int64, ())
+    _cuda.check_cuda_tensor("stream", stream, torch.uint8, (stream.shape[0],))
+    if not 0 <= n <= n_pad or n_pad % CHUNK:
+        raise ValueError(f"rans decode kernel: {n} symbols in {n_pad} rows")
+    out = torch.empty(n_pad, dtype=torch.uint8, device=rows.device)
+    lib = _cuda.load("rans.cu")
+    with _cuda.on_device(rows, states, ptr, stream):
+        code = lib.scp_rans_decode_group(
+            rows.data_ptr(), n, n_pad, stream.data_ptr(), stream.shape[0], states.data_ptr(),
+            ptr.data_ptr(), out.data_ptr(), _cuda.stream_ptr(rows),
+        )
+    _cuda.check(lib, code, "rans decode")
+    decode_group_kernel.launches += 1
+    profiling.count("rans.launches", 1)
+    return out
+
+
+def encode_kernel(groups, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel encode of a whole stream: groups [(sf (n_pad, 2) int64, n)] in
+    stream order -> (info (K+1,) int64: the body's byte count, then each
+    lane's final state; buf (cap,) uint8 whose last info[0] bytes are the
+    body)."""
+    from scp_tpu_torch.ops import _cuda
+
+    for sf, n in groups:
+        _cuda.check_cuda_tensor("sf", sf, torch.int64, (sf.shape[0], 2))
+        if n > sf.shape[0]:
+            raise ValueError(f"rans encode kernel: {n} symbols in {sf.shape[0]} rows")
+    # pinned, so the upload does not wait for the work queued before it
+    table = torch.tensor([[sf.data_ptr(), n] for sf, n in groups],
+                         dtype=torch.int64).pin_memory().to(device, non_blocking=True)
+    cap = 2 * K_LANES * sum(-(-n // K_LANES) for _, n in groups)
+    buf = torch.empty(cap, dtype=torch.uint8, device=device)
+    info = torch.empty(K_LANES + 1, dtype=torch.int64, device=device)
+    lib = _cuda.load("rans.cu")
+    with _cuda.on_device(table, buf, info, *(sf for sf, _ in groups)):
+        code = lib.scp_rans_encode(table.data_ptr(), len(groups), buf.data_ptr(), cap,
+                                   info.data_ptr(), _cuda.stream_ptr(info))
+    _cuda.check(lib, code, "rans encode")
+    encode_kernel.launches += 1
+    profiling.count("rans.launches", 1)
+    return info, buf
+
+
+decode_group_kernel.launches = 0
+encode_kernel.launches = 0
+
+
 class RansEncoder:
     """Collects per-group (cdf_low, freq) device tensors during the forward
     model pass; `finish()` runs the reverse-order encode chain and fetches
@@ -155,6 +219,27 @@ class RansEncoder:
             self.n_symbols += int(n)
 
     def finish(self) -> bytes:
+        # lanes beyond the largest group were never touched: store only the
+        # used prefix
+        used = min(max((n for _, n in self.groups), default=0), K_LANES)
+        finish = self._finish_plain if self.device.type == "cpu" else self._finish_kernel
+        head, body = finish(used)
+        return np.uint16(used).tobytes() + head + body
+
+    def _finish_kernel(self, used: int) -> tuple[bytes, bytes]:
+        if not self.groups:
+            return b"", b""
+        with profiling.span("rans.encode"):
+            info, buf = encode_kernel(self.groups, self.device)
+            profiling.count("rans.steps", sum(-(-n // K_LANES) for _, n in self.groups))
+        with profiling.span("codec.fetch"):
+            info = info[: used + 1].cpu().numpy()
+        total = int(info[0])
+        with profiling.span("codec.fetch"):
+            body = buf[buf.shape[0] - total :].cpu().numpy().tobytes()
+        return info[1:].astype("<u4").tobytes(), body
+
+    def _finish_plain(self, used: int) -> tuple[bytes, bytes]:
         states = torch.full((K_LANES,), RANS_L, dtype=torch.int64, device=self.device)
         rev_blocks = []  # (block, total) in reverse stream order
         with profiling.span("rans.encode"):
@@ -165,9 +250,6 @@ class RansEncoder:
                     )
                     rev_blocks.append((block, total))
                     profiling.count("rans.steps", _chunk_steps(c * CHUNK, n))
-        # lanes beyond the largest group were never touched: store only the
-        # used prefix
-        used = min(max((n for _, n in self.groups), default=0), K_LANES)
         with profiling.span("codec.fetch"):
             head = states[:used].cpu().numpy().astype("<u4").tobytes()
         body = b""
@@ -178,7 +260,7 @@ class RansEncoder:
             parts = torch.cat([b[:t] for (b, _), t in zip(blocks, totals)])
             with profiling.span("codec.fetch"):
                 body = parts.cpu().numpy().tobytes()
-        return np.uint16(used).tobytes() + head + body
+        return head, body
 
 
 class RansDecoder:
@@ -208,19 +290,25 @@ class RansDecoder:
         if rows.shape[0] % CHUNK:
             raise ValueError(f"group of {rows.shape[0]} rows is not a CHUNK multiple")
         with profiling.span("rans.decode"):
-            outs = []
-            for c in range(-(-n // CHUNK)):
-                rows_c = rows[c * CHUNK : (c + 1) * CHUNK].reshape(CHUNK_STEPS, K_LANES, 256)
-                syms, self.states, self.ptr = _decode_chunk(
-                    self.states, self.ptr, self.stream, rows_c, c * CHUNK, n
-                )
-                outs.append(syms.reshape(-1))
-                profiling.count("rans.steps", _chunk_steps(c * CHUNK, n))
-            got = len(outs) * CHUNK
-            if got < rows.shape[0]:
-                outs.append(torch.zeros(rows.shape[0] - got, dtype=torch.uint8,
-                                        device=rows.device))
-            return torch.cat(outs) if len(outs) > 1 else outs[0]
+            if self.states.device.type == "cpu":
+                return self._decode_group_plain(rows, n)
+            out = decode_group_kernel(self.states, self.ptr, self.stream, rows, n)
+            profiling.count("rans.steps", -(-n // K_LANES))
+            return out
+
+    def _decode_group_plain(self, rows: torch.Tensor, n: int) -> torch.Tensor:
+        outs = []
+        for c in range(-(-n // CHUNK)):
+            rows_c = rows[c * CHUNK : (c + 1) * CHUNK].reshape(CHUNK_STEPS, K_LANES, 256)
+            syms, self.states, self.ptr = _decode_chunk(
+                self.states, self.ptr, self.stream, rows_c, c * CHUNK, n
+            )
+            outs.append(syms.reshape(-1))
+            profiling.count("rans.steps", _chunk_steps(c * CHUNK, n))
+        got = len(outs) * CHUNK
+        if got < rows.shape[0]:
+            outs.append(torch.zeros(rows.shape[0] - got, dtype=torch.uint8, device=rows.device))
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 
 def pad_to_chunk(n: int) -> int:

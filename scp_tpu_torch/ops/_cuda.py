@@ -27,7 +27,7 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("mlp.cu", "swin_attn.cu", "knn_topk.cu", "window_attn.cu")
+SOURCES = ("mlp.cu", "swin_attn.cu", "knn_topk.cu", "window_attn.cu", "rans.cu")
 # -Xptxas -v: each kernel's registers, shared memory and spills go to the
 # build log beside the library (ptxas_report)
 FLAGS = ["-shared", "-Xcompiler", "-fPIC", "-gencode=arch=compute_90a,code=sm_90a", "-O3",
@@ -49,6 +49,10 @@ _SIGNATURES = {
     },
     "window_attn.cu": {
         "scp_window_attn": [_P, _L, _L, _L] * 4 + [_P, _P] + [_I] * 5 + [_F, _I, _P],
+    },
+    "rans.cu": {
+        "scp_rans_decode_group": [_P, _L, _L, _P, _L, _P, _P, _P, _P],
+        "scp_rans_encode": [_P, _I, _P, _L, _P, _P],
     },
 }
 # the element types the Swin kernels (A, B, C, E) take, and the flag that

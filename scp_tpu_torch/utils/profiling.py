@@ -29,9 +29,12 @@ The spans and counters the port opens, and what each is for:
   codec.upload (the rANS decoder's stream upload), codec.phase1,
   codec.phase2 (each phase call), codec.expand (each device expansion),
   codec.fetch (each blocking device-to-host read of the rans path);
-  rans.encode (RansEncoder.finish's chunk loop), rans.decode (each
-  RansDecoder.decode_group); the counter rans.steps (coder steps
-  enqueued, both directions, added once per chunk);
+  rans.encode (RansEncoder.finish's encode chain, up to its first fetch),
+  rans.decode (each RansDecoder.decode_group); the counters rans.steps
+  (coder steps enqueued, both directions: once per chunk on the CPU's
+  plain loops, once per group or stream on the card) and rans.launches
+  (the coder's kernel launches, one per group decoded and per stream
+  encoded on the card);
   train.load_wait (the consumer's wait in train/data.py:prefetch),
   train.forward, train.backward, train.allreduce, train.update
   (Trainer.train_step);
