@@ -61,6 +61,7 @@ from scp_tpu_torch.codec.ehem_codec import BACKEND, logits_to_cdf
 from scp_tpu_torch.codec.slices import softmax_np
 from scp_tpu_torch.core.octree import occupancy_to_child_octants
 from scp_tpu_torch.models.octattention import OctAttention
+from scp_tpu_torch.utils import profiling
 
 _PAD_OCC = 255
 
@@ -427,19 +428,22 @@ class OctAttentionCodec:
         cache = model.init_cache(lanes)
         out = torch.zeros((nsteps, lanes) if dec is not None else (nsteps, lanes, 2),
                           dtype=torch.int64, device=self.device)
-        for j in range(max_m):
-            n_act = orans.active_count(n, csz, j)
-            d_j, p_j = inputs(j)
-            logits, qs = model.decode_step(d_j, p_j, cache, j)
-            rows = logits_to_cdf(logits)
-            if dec is not None:
-                sym = dec.step(rows, n_act)[:lanes]
-                out[j] = sym
-            else:
-                sym = true_syms[j]
-                out[j] = rans.gather_start_freq(rows, sym)
-            d_j[:, -1, 0] = torch.where(lane < n_act, sym, _PAD_OCC).to(d_j.dtype)
-            model.decode_insert(d_j, p_j, cache, j, qs)
+        with profiling.span("octattn.level"):
+            for j in range(max_m):
+                n_act = orans.active_count(n, csz, j)
+                d_j, p_j = inputs(j)
+                logits, qs = model.decode_step(d_j, p_j, cache, j)
+                rows = logits_to_cdf(logits)
+                if dec is not None:
+                    sym = dec.step(rows, n_act)[:lanes]
+                    out[j] = sym
+                else:
+                    sym = true_syms[j]
+                    out[j] = rans.gather_start_freq(rows, sym)
+                d_j[:, -1, 0] = torch.where(lane < n_act, sym, _PAD_OCC).to(d_j.dtype)
+                model.decode_insert(d_j, p_j, cache, j, qs)
+        profiling.count("octattn.positions", max_m)
+        profiling.count("octattn.lanes", max_m * lanes)
         return out
 
     def encode_incremental_into(self, enc: orans.OctRansEncoder, ctx: np.ndarray) -> float:
@@ -454,55 +458,59 @@ class OctAttentionCodec:
         inv_scale = float(np.float32(1.0 / float(2**max_level)))
         t0 = time.perf_counter()
         off = 0
-        for li, (data, pos) in enumerate(levels):
-            n = data.shape[0]
-            occ = occ_stream[off : off + n].astype(np.int64)
-            off += n
-            lanes = self._lane_count(-(-n // self.csz))
-            if self.fused:
-                inputs = self._fused_inputs(
-                    *self._level_bufs(data, pos_int_all[node_level == li + 1], lanes),
-                    inv_scale, lanes)
-            else:
-                inputs = self._host_inputs(data, pos, n, lanes)
-            sf = self._rans_level(inputs, n, lanes, true_syms=self._true_syms(occ, n, lanes))
-            enc.append_level(sf, n, self.csz)
-        _sync(self.device)
+        with profiling.span("octattn.encode"):
+            for li, (data, pos) in enumerate(levels):
+                n = data.shape[0]
+                occ = occ_stream[off : off + n].astype(np.int64)
+                off += n
+                lanes = self._lane_count(-(-n // self.csz))
+                if self.fused:
+                    inputs = self._fused_inputs(
+                        *self._level_bufs(data, pos_int_all[node_level == li + 1], lanes),
+                        inv_scale, lanes)
+                else:
+                    inputs = self._host_inputs(data, pos, n, lanes)
+                sf = self._rans_level(inputs, n, lanes,
+                                      true_syms=self._true_syms(occ, n, lanes))
+                enc.append_level(sf, n, self.csz)
+            _sync(self.device)
         return time.perf_counter() - t0
 
     def decode_incremental_rans(self, dec: orans.OctRansDecoder, max_level: int,
                                 ground_truth: np.ndarray | None = None) -> np.ndarray:
         """Incremental decode from an open OctRansDecoder; one symbol fetch
         per level."""
-        inv_scale = float(np.float32(1.0 / float(2**max_level)))
-        anc_d, anc_p, self_d, self_p = self._root_rows()
-        codes = []
-        decoded = 0
-        for level in range(1, max_level + 1):
-            data = np.concatenate([anc_d, self_d], axis=1)
-            pos_int = np.concatenate([anc_p, self_p], axis=1)
-            n = data.shape[0]
-            lanes = self._lane_count(-(-n // self.csz))
-            if lanes > dec.k:
-                raise ValueError(f"level {level} needs {lanes} lanes, the stream has {dec.k}")
-            if self.fused:
-                inputs = self._fused_inputs(*self._level_bufs(data, pos_int, lanes),
-                                            inv_scale, lanes)
-            else:
-                pos = pos_int.astype(np.float32) * np.float32(inv_scale)
-                inputs = self._host_inputs(data, pos, n, lanes)
-            syms = self._rans_level(inputs, n, lanes, dec=dec)
-            host = syms.cpu().numpy()  # the level's one fetch
-            i = np.arange(n)  # node i is position i % csz of lane i // csz
-            level_occ = host[i % self.csz, i // self.csz].astype(np.int32)
-            if ground_truth is not None:
-                want = ground_truth[decoded : decoded + n]
-                if not (want == level_occ.astype(np.int16)).all():
-                    raise AssertionError(f"incremental-rans decode mismatch at level {level}")
-            decoded += n
-            codes.append(level_occ.astype(np.int16))
-            if level == max_level:
-                break
-            anc_d, anc_p, self_d, self_p = self._next_level_rows(
-                anc_d, self_d, pos_int, level_occ, level, max_level)
-        return np.concatenate(codes)
+        with profiling.span("octattn.decode"):
+            inv_scale = float(np.float32(1.0 / float(2**max_level)))
+            anc_d, anc_p, self_d, self_p = self._root_rows()
+            codes = []
+            decoded = 0
+            for level in range(1, max_level + 1):
+                data = np.concatenate([anc_d, self_d], axis=1)
+                pos_int = np.concatenate([anc_p, self_p], axis=1)
+                n = data.shape[0]
+                lanes = self._lane_count(-(-n // self.csz))
+                if lanes > dec.k:
+                    raise ValueError(f"level {level} needs {lanes} lanes, the stream has {dec.k}")
+                if self.fused:
+                    inputs = self._fused_inputs(*self._level_bufs(data, pos_int, lanes),
+                                                inv_scale, lanes)
+                else:
+                    pos = pos_int.astype(np.float32) * np.float32(inv_scale)
+                    inputs = self._host_inputs(data, pos, n, lanes)
+                syms = self._rans_level(inputs, n, lanes, dec=dec)
+                with profiling.span("octattn.fetch"):
+                    host = syms.cpu().numpy()  # the level's one fetch
+                i = np.arange(n)  # node i is position i % csz of lane i // csz
+                level_occ = host[i % self.csz, i // self.csz].astype(np.int32)
+                if ground_truth is not None:
+                    want = ground_truth[decoded : decoded + n]
+                    if not (want == level_occ.astype(np.int16)).all():
+                        raise AssertionError(f"incremental-rans decode mismatch at level {level}")
+                decoded += n
+                codes.append(level_occ.astype(np.int16))
+                if level == max_level:
+                    break
+                anc_d, anc_p, self_d, self_p = self._next_level_rows(
+                    anc_d, self_d, pos_int, level_occ, level, max_level)
+            return np.concatenate(codes)

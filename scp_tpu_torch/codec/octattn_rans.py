@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from scp_tpu_torch.codec import rans
+from scp_tpu_torch.utils import profiling
 
 DEFAULT_CAP = 1 << 21
 
@@ -178,10 +179,14 @@ class OctRansEncoder:
         blocks.reverse()
         body = b""
         if blocks:
-            totals = torch.stack([t for _, t in blocks]).cpu().tolist()
-            body = torch.cat([b[:t] for (b, _), t in zip(blocks, totals)]).cpu().numpy().tobytes()
+            with profiling.span("octattn.fetch"):
+                totals = torch.stack([t for _, t in blocks]).cpu().tolist()
+            body = torch.cat([b[:t] for (b, _), t in zip(blocks, totals)])
+            with profiling.span("octattn.fetch"):
+                body = body.cpu().numpy().tobytes()
         _check_cap(len(body), self.k, self.cap, "encoded payload")
-        head = states.cpu().numpy().astype("<u4").tobytes()
+        with profiling.span("octattn.fetch"):
+            head = states.cpu().numpy().astype("<u4").tobytes()
         return np.uint16(self.k).tobytes() + head + body
 
 

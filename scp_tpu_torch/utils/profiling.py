@@ -35,6 +35,12 @@ The spans and counters the port opens, and what each is for:
   plain loops, once per group or stream on the card) and rans.launches
   (the coder's kernel launches, one per group decoded and per stream
   encoded on the card);
+  octattn.encode, octattn.decode (OctAttentionCodec.encode_incremental_into
+  / decode_incremental_rans, one per direction), octattn.level (each level's
+  step loop of the rans schedule), octattn.fetch (each blocking
+  device-to-host read of that schedule: a level's symbols, finish()'s
+  three); the counters octattn.positions (lane-wide steps) and
+  octattn.lanes (lanes stepped, padded lanes included);
   train.load_wait (the consumer's wait in train/data.py:prefetch),
   train.forward, train.backward, train.allreduce, train.update
   (Trainer.train_step);
