@@ -72,9 +72,10 @@ Phases, each printed as it ends (any failure exits non-zero):
      from checkpoints/octattn_synth_l12_v2.npz (through
      scp_tpu_torch.weights), the bench sweep at lidar level 12, spherical
      (365,165 nodes in 11 levels; the largest, 119,219 nodes, is 117
-     chunks of 1024 -> 128 lanes).  The model is plain PyTorch (scp_tpu
-     computes it with einsums, no Pallas kernel), so kernels A-E launch 0
-     times here, and the phase says so.
+     chunks of 1024 -> 128 lanes).  scp_tpu computes the model with
+     einsums, no Pallas kernel; the port's KV-cache step launches only the
+     cached-attention kernel (phase 16) inside CUDA graphs, so kernels A-E
+     launch 0 times here, and the phase says so.
      9a. the first 1024-row chunk of the largest level: the card's
          full-window logits against the CPU's (the same f32 model), and
          the card's KV-cache steps (decode_step / decode_insert at every
@@ -85,7 +86,11 @@ Phases, each printed as it ends (any failure exits non-zero):
          exceed only by the coder's constants (32 bits of state per lane
          and the 2-byte header); bpp, the walls, the step loop's host
          time against the device's span, and its kernel launches per
-         position (a profiled level);
+         position (a profiled level); kernel K (phase 16) on the main
+         path: every position of both directions a graph replay, K's
+         launches in the roundtrip those of the replays and of each
+         capture's one eager run (the kernel table's `launches`), and K's
+         kernels in the profiled level's trace;
      9c. the CLIs in a temp dir: the sweep as a KITTI .bin, a run dir of
          configs/train_kitti.yaml with the v2 npz under ckpt/;
          cli.encode --incremental (the rans schedule) and cli.decode with
@@ -226,6 +231,15 @@ Phases, each printed as it ends (any failure exits non-zero):
      same stream bytes, symbols and (states, ptr); CUDA-event times of a
      decode group and an encode, kernel and plain loops; the kernels'
      launches in phase 4's roundtrip; their registers and spills (phase 1).
+ 16. the cached attention of OctAttention's KV-cache step
+     (ops/csrc/cached_attn.cu) against its plain version at the octattn
+     cell's deepest step (128 lanes, 4 heads, cache length 1023, hd 150)
+     and at 32, 8 and 1 lanes, f32 and bf16: CUDA-event times of the
+     kernel (the length a device scalar), of the plain version and of the
+     step's eager batched products (library), beside the bytes bound; its
+     registers and spills (phase 1).  The kernel's time is that of launches
+     replayed from a CUDA graph, as the step runs it (the eager launch's
+     host cost beside it).
 
 Phase 2 also holds A, B, C and E in f32 against their plain versions
 (atol = rtol = 1e-4), and times the attention core that B, C and E share
@@ -272,6 +286,9 @@ N_POINTS = 120_000
 LIDAR_LEVEL = 16
 TOL = 3e-2  # atol = rtol: bf16 outputs (8-bit mantissa), kernel vs plain summation order
 F32_TOL = 1e-4  # atol = rtol: f32 outputs, summation order over K <= 1024 (TF32 would miss it)
+# phase 16: the bf16 cached attention against the f32 products of its operands
+ATTN_BF16_RTOL = 2.0**-7  # twice the output's rounding (half a bf16 ulp <= 2^-8 relative)
+ATTN_BF16_ATOL = 1e-5  # f32 summation order over <= 1024 rows of O(1) terms
 # kernel D vs its plain version at C > 4: the index lists may differ only
 # where the two sum a dot product in other orders and a near tie swaps; the
 # exact (f64) distances of both picks agree within KNN_RTOL on every row.
@@ -321,14 +338,16 @@ def cuda_time_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def check_close(name, got, want, tol=TOL):
+def check_close(name, got, want, tol=TOL, rtol=None):
+    """|got - want| <= tol + rtol |want| everywhere (rtol defaults to tol)."""
+    rtol = tol if rtol is None else rtol
     err = (got.float() - want.float()).abs()
-    bound = tol + tol * want.float().abs()
+    bound = tol + rtol * want.float().abs()
     max_err = float(err.max())
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     bad = int((err > bound).sum())
-    say(f"  {name}: max_abs_err={max_err:.6g} (tolerance atol=rtol={tol}), "
+    say(f"  {name}: max_abs_err={max_err:.6g} (tolerance atol={tol}, rtol={rtol}), "
         f"elements over tolerance: {bad}")
     if bad:
         raise AssertionError(f"{name}: {bad} elements over tolerance")
@@ -1123,9 +1142,14 @@ def _profiled_largest_level(codec, ctx) -> dict:
         sync(codec.device)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    # demangled: "void (anonymous namespace)::cached_attn_split<float>(...)"
+    split = sum("cached_attn_split" in e.name for e in kernels)
+    if codec.device.type == "cuda" and not split:
+        raise AssertionError("phase 9b: the cached-attention kernel is not in the level's trace")
     return dict(level=li + 1, nodes=n, lanes=lanes, positions=positions,
                 host_ms_per_position=1e3 * wall / positions,
                 kernel_launches_per_position=len(kernels) / positions,
+                cached_attn_launches_per_position=split / positions,
                 kernel_ms_per_position=dev_ms / positions,
                 idle_share=1.0 - dev_ms / (1e3 * wall))
 
@@ -1170,7 +1194,7 @@ def octattn_phase(device="cuda", n_points=N_POINTS, level=OCT_LEVEL,
     say(f"phase 9 setup: {time.time() - t0:.2f} s; f32 OctAttention from "
         f"{os.path.basename(OCT_CKPT)}; {ctx.shape[0]} nodes in {len(sizes)} levels "
         f"(largest {max(sizes)}), {lanes} lanes, {steps} positions per direction; "
-        "kernels A-E: 0 launches on this path (plain PyTorch model)")
+        "kernels A-E: 0 launches on this path (its one kernel is the cached attention)")
     out.update(nodes=int(ctx.shape[0]), levels=len(sizes), level_sizes=sizes, lanes=lanes,
                positions=steps)
 
@@ -1198,6 +1222,11 @@ def octattn_phase(device="cuda", n_points=N_POINTS, level=OCT_LEVEL,
     out.update(err_card_vs_cpu=err_cpu, err_steps_vs_window=err_kv)
 
     # ---- 9b: fused device-rANS encode + decode in process
+    from scp_tpu_torch.ops import cached_attn
+
+    cached_attn.cached_attention.launches = 0  # counted over 9b's roundtrip alone
+    model.step_replays = 0
+    captured = len(model._graphs)
     sync(device)
     t0 = time.perf_counter()
     enc = codec.new_rans_encoder(lanes)
@@ -1213,6 +1242,18 @@ def octattn_phase(device="cuda", n_points=N_POINTS, level=OCT_LEVEL,
     t_dec = time.perf_counter() - t0
     if not (codes == occ).all():
         raise AssertionError("phase 9b: decode is not lossless")
+    # kernel K on the main path: every position of both directions replays
+    # the model's step and insert, which launch it once a layer (the
+    # insert's last layer attends nothing), as does the one eager run that
+    # precedes each lane count's capture
+    k_launches, replays = cached_attn.cached_attention.launches, model.step_replays
+    k_per_position = 2 * model.num_layers - 1
+    captured = len(model._graphs) - captured
+    if device == "cuda" and not (
+            replays == 2 * steps and k_launches == k_per_position * (replays + captured)):
+        raise AssertionError(f"phase 9b: {replays} step replays for {2 * steps} "
+                             f"positions, {captured} lane counts captured, {k_launches} "
+                             "cached-attention launches")
     bits = len(payload) * 8
     slack = 32 * lanes + 16
     if not ideal <= bits <= ideal + slack:
@@ -1226,10 +1267,12 @@ def octattn_phase(device="cuda", n_points=N_POINTS, level=OCT_LEVEL,
         f"{prof['positions']} positions): {prof['host_ms_per_position']:.4f} ms host wall, "
         f"{prof['kernel_launches_per_position']:.1f} kernel launches and "
         f"{prof['kernel_ms_per_position']:.4f} ms of kernels per position (idle share "
-        f"{prof['idle_share']:.3f})")
+        f"{prof['idle_share']:.3f}), of them {prof['cached_attn_launches_per_position']:.1f} "
+        f"cached-attention launches; kernel K {k_launches} launches in the roundtrip "
+        f"(({replays} step replays + {captured} captures) x {k_per_position})")
     out.update(payload_bytes=len(payload), payload_bits=bits, ideal_bits=ideal,
                bpp=bits / n_points, encode_s=t_enc, encode_loop_s=t_loop, decode_s=t_dec,
-               step_profile=prof)
+               step_profile=prof, cached_attn_launches=k_launches)
 
     # ---- 9c: the CLIs
     work = tempfile.mkdtemp(prefix="chip_smoke_oct_")
@@ -2709,6 +2752,88 @@ def rans_phase(slices, l16_launches: int, resources: dict) -> dict:
     return out
 
 
+def cached_attn_resources(cuda):
+    """Registers and spills of the cached attention's two kernels in both
+    element types; fails on any spill."""
+    rows = {r["kernel"]: r for r in cuda.ptxas_report("cached_attn.cu", "cached_attn_")}
+    if len(rows) != 4:
+        raise AssertionError(f"cached attention kernels in the build log: {sorted(rows)}")
+    return check_spills(rows, "cached attention")
+
+
+def graph_time_ms(fn, reps: int = 20) -> float:
+    """ms a call of fn, from `reps` calls captured in one CUDA graph and
+    replayed: the device's time, without the host's launch cost."""
+    from scp_tpu_torch.utils.cuda_graphs import capture
+
+    graph, _ = capture(lambda: [fn() for _ in range(reps)])
+    return cuda_time_ms(graph.replay, 5) / reps
+
+
+def cached_attn_phase() -> dict:
+    """16 (see the module docstring)."""
+    from scp_tpu_torch.ops import cached_attn
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    heads, window, hd, length = 4, 1024, 150, 1023
+    out = {"shape": [128, heads, length, hd]}
+    for lanes in (128, 32, 8, 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            def r(*s):
+                return torch.randn(*s, generator=gen, device="cuda").to(dtype)
+
+            args = (r(lanes, heads * hd), r(lanes, heads * hd), r(lanes, heads * hd),
+                    r(lanes, heads, window, hd), r(lanes, heads, window, hd))
+            dev_len = torch.tensor(length, dtype=torch.int64, device="cuda")
+            got = cached_attn.cached_attention(*args, dev_len)
+            f32 = dtype == torch.float32
+            if f32:
+                want = cached_attn.cached_attention_plain(*args, length)
+                err = check_close(f"cached attention {lanes} lanes f32", got, want, F32_TOL)
+            else:
+                # the kernel sums in f32, so a bf16 call differs from the f32
+                # products of its own operands only by the output's rounding:
+                # half a bf16 ulp, <= 2^-8 of the value; twice that, and an
+                # atol for the f32 summation order (a dropped self slot,
+                # chunk or split moves outputs by percents)
+                want = cached_attn.cached_attention_plain(*(a.float() for a in args), length)
+                err = check_close(f"cached attention {lanes} lanes bf16", got, want,
+                                  ATTN_BF16_ATOL, ATTN_BF16_RTOL)
+            es = args[0].element_size()
+            # each cached K and V row read once; q, k_self, v_self read, out written
+            n_bytes = es * (2 * lanes * heads * length * hd + 4 * lanes * heads * hd)
+            flops = 4 * lanes * heads * (length + 1) * hd
+            bound, by = bound_ms(n_bytes, flops, PEAK_F32_FLOPS)
+            row = dict(max_abs_err=err, bound_ms=bound, bound_by=by, bytes=n_bytes,
+                       ms=graph_time_ms(lambda: cached_attn.cached_attention(*args, dev_len)),
+                       eager_ms=cuda_time_ms(
+                           lambda: cached_attn.cached_attention(*args, dev_len), 20, warm=3),
+                       # the plain version, the position a device scalar read back
+                       plain_ms=cuda_time_ms(
+                           lambda: cached_attn.cached_attention_plain(*args, dev_len), 5),
+                       # the step's batched products with a host position: the
+                       # port's eager _attend_cached before the kernel
+                       library_ms=cuda_time_ms(
+                           lambda: cached_attn.cached_attention_plain(*args, length), 5))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            out[f"{lanes}_{'f32' if f32 else 'bf16'}"] = row
+            del args, got, want
+    m = out["128_f32"]
+    say(f"phase 16 cached attention: {time.time() - t0:.2f} s; at (128 lanes, {heads} heads, "
+        f"length {length}, hd {hd}) f32: {m['ms']:.4f} ms/launch, bound {m['bound_ms']:.4f} ms "
+        f"({m['bound_by']}; {100 * m['bound_share']:.1f}% of it), plain {m['plain_ms']:.4f} ms, "
+        f"library (eager batched products) {m['library_ms']:.4f} ms")
+    for k, v in out.items():
+        if k != "shape":
+            say(f"  {k}: {v['ms']:.4f} ms (eager {v['eager_ms']:.4f}), bound "
+                f"{v['bound_ms']:.4f} ms ({100 * v['bound_share']:.1f}%), plain "
+                f"{v['plain_ms']:.4f}, library {v['library_ms']:.4f}, max_abs_err "
+                f"{v['max_abs_err']:.3g}")
+    return out
+
+
 def main(argv=None) -> int:
     """`--phase12-only`: phases 0, 1, 3 and 4 (phase 12's yardstick), then
     phase 12, and no kernel table (a multi-card run of the new phase)."""
@@ -2730,7 +2855,7 @@ def main(argv=None) -> int:
     from scp_tpu_torch.codec.slices import split_levels
     from scp_tpu_torch.core.preprocess import kitti_qs, preprocess_points
     from scp_tpu_torch.models.ehem import EHEM
-    from scp_tpu_torch.ops import _cuda, knn_topk, window_attn
+    from scp_tpu_torch.ops import _cuda, cached_attn, knn_topk, window_attn
     from scp_tpu_torch.ops import mlp as mlp_ops
     from scp_tpu_torch.ops import swin_attn
     from scp_tpu_torch.weights import load_into
@@ -2741,6 +2866,7 @@ def main(argv=None) -> int:
         f"cached {built['cached']}")
     resources = {**sm90_resources(_cuda), **knn_resources(_cuda)}
     rans_res = rans_resources(_cuda)
+    cattn_res = cached_attn_resources(_cuda)
 
     # ---- 3 (needed by 2). the model
     t0 = time.time()
@@ -2955,6 +3081,19 @@ def main(argv=None) -> int:
         library_note="no PyTorch call codes rANS",
         bound_note="bytes bound; the serial chain of 64 dependent steps a chunk binds",
         **{k: v for k, v in p15.items() if k != "ptxas"})
+    # ---- 16. the cached attention of OctAttention's KV-cache step
+    p16 = cached_attn_phase()
+    m = p16["128_f32"]
+    rows["K"] = dict(
+        name="cached_attn_split / cached_attn_combine", route="cuda",
+        source="scp_tpu_torch/ops/csrc/cached_attn.cu",
+        replaces="no pallas_call: einsums in scp_tpu/models/octattention.py (decode_step, "
+                 "decode_insert)", launches=p9["cached_attn_launches"],
+        max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
+        bound_ms=m["bound_ms"], bound_by=m["bound_by"], library_ms=m["library_ms"],
+        library_note="the step's eager batched products (torch.bmm, softmax) with a host "
+                     "position", shape=p16["shape"], ptxas=cattn_res,
+        **{k: v for k, v in p16.items() if k not in ("shape", "128_f32")})
     say(f"total wall {time.time() - t_start:.1f} s")
 
     for k, prefixes in (("A", ("mlp_sm90<",)), ("B", ("gemm_sm90<",)), ("C", ("gemm_sm90<",)),

@@ -43,8 +43,12 @@ The stream stamp (coding_params) names the compute dtype, the rans
 schedule's `fused` and cap, and the port's backend; neither package
 decodes the other's streams.
 
-The model launches no kernel of its own: scp_tpu computes OctAttention
-with einsums and softmax, not with a Pallas kernel.
+scp_tpu computes OctAttention with einsums and softmax, not with a Pallas
+kernel.  On the card the model's step launches the cached-attention kernel
+(ops/cached_attn.py) and replays captured graphs, and the fused rans
+schedule runs its own part of each position as two more replays
+(LevelGraphs); the stamp then names the kernel's numerics (cattn=split).
+The CPU runs the same loop eagerly.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from scp_tpu_torch.codec.slices import softmax_np
 from scp_tpu_torch.core.octree import occupancy_to_child_octants
 from scp_tpu_torch.models.octattention import OctAttention
 from scp_tpu_torch.utils import profiling
+from scp_tpu_torch.utils.cuda_graphs import capture
 
 _PAD_OCC = 255
 
@@ -86,6 +91,7 @@ class OctAttentionCodec:
         self.mode = mode
         self.fused = bool(fused)
         self.stream_cap = int(stream_cap)
+        self._graphs: dict = {}  # (lanes, decoder stream bytes or None) -> LevelGraphs
 
     @property
     def backend(self) -> str:
@@ -100,6 +106,8 @@ class OctAttentionCodec:
             stamp += f";octsched={'fused' if self.fused else 'steps'}"
             if self.fused:
                 stamp += f";cap={self.stream_cap}"
+        if self.device.type == "cuda":  # the cached attention's kernel (split f32 sums)
+            stamp += ";cattn=split"
         return stamp + f";backend={self.backend}"
 
     # -- level slicing (reference EncodeDataset, encode_dataset.py:32-55) --
@@ -406,9 +414,7 @@ class OctAttentionCodec:
     def _fused_inputs(self, d_buf, p_buf, inv_scale: float, lanes: int):
         """Position j's (lanes, K, 3) inputs gathered on the device from the
         level buffers (the fused schedule: nothing crosses the host link)."""
-        lane = torch.arange(lanes, device=self.device)
-        return lambda j: (d_buf[lane * self.csz + j],
-                          p_buf[lane * self.csz + j].float() * inv_scale)
+        return FusedInputs(d_buf, p_buf, inv_scale, lanes, self.csz)
 
     def _host_inputs(self, data, pos, n: int, lanes: int):
         """Position j's inputs built on the host and uploaded (scp_tpu's
@@ -420,31 +426,44 @@ class OctAttentionCodec:
         position, the model step, the CDF rows, the symbol (decoded by `dec`,
         or true_syms[j] at encode), the cache insert.  Encode returns the
         (nsteps, lanes, 2) (cdf_low, freq) buffer, decode the (nsteps,
-        lanes) symbols."""
-        model, csz = self.model, self.csz
-        max_m = min(csz, n)
+        lanes) symbols.  The codec's part of a position is PositionWork's;
+        on a CUDA model with fused inputs it runs as two graph replays
+        around the model's (LevelGraphs), elsewhere eagerly."""
+        model = self.model
+        max_m = min(self.csz, n)
         nsteps = self._steps_bucket(max_m)
-        lane = torch.arange(lanes, device=self.device)
-        cache = model.init_cache(lanes)
-        out = torch.zeros((nsteps, lanes) if dec is not None else (nsteps, lanes, 2),
-                          dtype=torch.int64, device=self.device)
+        replays = model.step_replays
+        if (self.device.type == "cuda" and isinstance(inputs, FusedInputs)
+                and inputs.lanes == lanes):
+            work = self._level_graphs(lanes, None if dec is None else dec.stream.shape[0])
+            work.begin(inputs, n, true_syms, dec)
+        else:
+            work = PositionWork(self, inputs, n, lanes, nsteps, true_syms, dec)
         with profiling.span("octattn.level"):
             for j in range(max_m):
-                n_act = orans.active_count(n, csz, j)
-                d_j, p_j = inputs(j)
-                logits, qs = model.decode_step(d_j, p_j, cache, j)
-                rows = logits_to_cdf(logits)
-                if dec is not None:
-                    sym = dec.step(rows, n_act)[:lanes]
-                    out[j] = sym
-                else:
-                    sym = true_syms[j]
-                    out[j] = rans.gather_start_freq(rows, sym)
-                d_j[:, -1, 0] = torch.where(lane < n_act, sym, _PAD_OCC).to(d_j.dtype)
-                model.decode_insert(d_j, p_j, cache, j, qs)
+                d_j, p_j = work.gather(j)
+                logits, qs = model.decode_step(d_j, p_j, work.cache, j)
+                work.post(logits, d_j)
+                model.decode_insert(d_j, p_j, work.cache, j, qs)
+            if profiling.on():  # the span then ends with the level's work on the device
+                _sync(self.device)
         profiling.count("octattn.positions", max_m)
         profiling.count("octattn.lanes", max_m * lanes)
-        return out
+        if model.step_replays > replays:  # never on the CPU
+            profiling.count("octattn.graph_replays", model.step_replays - replays)
+        return work.end(nsteps, dec)
+
+    def _level_graphs(self, lanes: int, stream_bytes: int | None) -> "LevelGraphs":
+        """The codec graphs of `lanes` lanes, for encode (stream_bytes None)
+        or for a decoder's stream of that many bytes, captured at first use.
+        A lane count first met captures both directions (the decode side at
+        this codec's stream cap), so a warm encode readies the decode."""
+        step = self.model.step_graphs(lanes)
+        for key in dict.fromkeys([(lanes, stream_bytes), (lanes, None), (lanes, self.stream_cap)]):
+            g = self._graphs.get(key)
+            if g is None or g.step is not step:  # absent, or the model's graphs were redone
+                self._graphs[key] = LevelGraphs(self, step, key[1])
+        return self._graphs[(lanes, stream_bytes)]
 
     def encode_incremental_into(self, enc: orans.OctRansEncoder, ctx: np.ndarray) -> float:
         """Teacher-forced incremental encode into an open OctRansEncoder
@@ -514,3 +533,151 @@ class OctAttentionCodec:
                 anc_d, anc_p, self_d, self_p = self._next_level_rows(
                     anc_d, self_d, pos_int, level_occ, level, max_level)
             return np.concatenate(codes)
+
+
+class FusedInputs:
+    """The fused schedule's inputs of one level: position j's (lanes, K, 3)
+    rows gathered on the device from the level buffers (data int32, grid
+    positions int32 normalized to f32 by inv_scale).  j and inv_scale are
+    host numbers, or device scalars (LevelGraphs' captured gather)."""
+
+    def __init__(self, d_buf, p_buf, inv_scale, lanes: int, csz: int):
+        self.d_buf, self.p_buf, self.inv_scale = d_buf, p_buf, inv_scale
+        self.lanes, self.csz = lanes, csz
+        self.lane = torch.arange(lanes, device=d_buf.device)
+
+    def __call__(self, j):
+        idx = self.lane * self.csz + j
+        return self.d_buf[idx], self.p_buf[idx].float() * self.inv_scale
+
+
+class PositionWork:
+    """The codec's part of each position of one level, around the model's
+    step and insert (which the level loop calls, so that whoever wraps
+    them sees every position):
+
+      * gather(j): position j's inputs;
+      * post(logits, data): the step's logits to CDF rows; the symbol (the
+        rANS decode step, updating the decoder's states and pointer in
+        place, or the teacher symbol's (cdf_low, freq) at encode) into row
+        j of the level's output, and into data's own occupancy for the
+        insert (pad lanes 255); j += 1.
+
+    j is an int64 device scalar, n a host int or one, so post is the same
+    arithmetic whether it runs eagerly (here: the CPU, the host inputs of
+    the "steps" schedule) or captured (LevelGraphs).  `cache` is the KV
+    cache the level steps in."""
+
+    def __init__(self, codec: "OctAttentionCodec", inputs, n, lanes: int, nsteps: int,
+                 true_syms, dec):
+        dev = codec.device
+        self.csz, self.inputs, self.n, self.true_syms = codec.csz, inputs, n, true_syms
+        self.lane = torch.arange(lanes, device=dev)
+        self.j = torch.zeros((), dtype=torch.int64, device=dev)
+        self.out = torch.zeros((nsteps, lanes) if dec is not None else (nsteps, lanes, 2),
+                               dtype=torch.int64, device=dev)
+        self.coder = None if dec is None else (dec.states, dec.ptr, dec.stream)
+        self.cache = codec.model.init_cache(lanes)
+
+    def gather(self, j: int):
+        return self.inputs(j)
+
+    def post(self, logits, data) -> None:
+        self.select(logits, data)
+
+    def select(self, logits, data) -> None:
+        rows = logits_to_cdf(logits)
+        j, csz = self.j, self.csz
+        n_act = torch.div(self.n - j + (csz - 1), csz, rounding_mode="floor")  # active_count
+        at = j.view(1)
+        if self.coder is not None:
+            sym = orans.decode_step_core(*self.coder, rows, n_act)[: self.lane.shape[0]]
+            self.out.index_copy_(0, at, sym[None])
+        else:
+            sym = self.true_syms.index_select(0, at)[0]
+            self.out.index_copy_(0, at, rans.gather_start_freq(rows, sym)[None])
+        data[:, -1, 0] = torch.where(self.lane < n_act, sym, _PAD_OCC).to(data.dtype)
+        j.add_(1)
+
+    def end(self, nsteps: int, dec) -> torch.Tensor:
+        return self.out
+
+
+class LevelGraphs(PositionWork):
+    """PositionWork of one lane count and direction as two CUDA graphs over
+    static buffers, replayed at every position of every level of that lane
+    count: gather writes the model graphs' static inputs (StepGraphs) from
+    the level buffers, post is select on the step's logits.  j, n and the
+    positions' scale are device scalars, so nothing in the loop syncs the
+    host.  The level's tensors (level buffers, teacher symbols, the
+    decoder's states, pointer and stream) are copied in once a level
+    (begin) and the output and the decoder's state out once (end); the
+    level steps in the model graphs' own caches."""
+
+    def __init__(self, codec: "OctAttentionCodec", step, stream_bytes: int | None):
+        model, dev, csz = codec.model, codec.device, codec.csz
+        self.step = step
+        self.csz = csz
+        lanes = step.data.shape[0]
+        steps = orans.lane_bucket(csz)
+        with torch.cuda.device(dev):
+            buf = (lanes * csz, model.ancestors, 3)
+            self.inputs = FusedInputs(torch.zeros(buf, dtype=torch.int32, device=dev),
+                                      torch.zeros(buf, dtype=torch.int32, device=dev),
+                                      torch.ones((), dtype=torch.float32, device=dev),
+                                      lanes, csz)
+            self.n = torch.zeros((), dtype=torch.int64, device=dev)
+            self.j = torch.zeros((), dtype=torch.int64, device=dev)
+            self.lane = torch.arange(lanes, device=dev)
+            self.logits = torch.zeros((lanes, model.token_num), dtype=torch.float32, device=dev)
+            if stream_bytes is None:
+                self.out = torch.zeros((steps, lanes, 2), dtype=torch.int64, device=dev)
+                self.true_syms = torch.zeros((steps, lanes), dtype=torch.int64, device=dev)
+                self.coder = None
+            else:
+                self.out = torch.zeros((steps, lanes), dtype=torch.int64, device=dev)
+                self.true_syms = None
+                self.coder = (torch.full((lanes,), rans.RANS_L, dtype=torch.int64, device=dev),
+                              torch.zeros((), dtype=torch.int64, device=dev),
+                              torch.zeros(stream_bytes, dtype=torch.uint8, device=dev))
+            data, pos = step.data, step.pos
+
+            def gather():
+                d_j, p_j = self.inputs(self.j)
+                data.copy_(d_j)
+                pos.copy_(p_j)
+
+            self.gather_graph, _ = capture(gather)
+            self.post_graph, _ = capture(lambda: self.select(self.logits, data))
+        profiling.count("octattn.graph_captures", 2)
+
+    def begin(self, inputs: FusedInputs, n: int, true_syms, dec) -> None:
+        self.inputs.d_buf.copy_(inputs.d_buf)
+        self.inputs.p_buf.copy_(inputs.p_buf)
+        self.inputs.inv_scale.fill_(inputs.inv_scale)
+        self.n.fill_(n)
+        self.j.zero_()
+        self.out.zero_()
+        if dec is None:
+            self.true_syms[: true_syms.shape[0]].copy_(true_syms)
+        else:
+            states, ptr, stream = self.coder
+            states.copy_(dec.states[: states.shape[0]])
+            ptr.copy_(dec.ptr)
+            stream.copy_(dec.stream)
+        self.cache = self.step.own_cache()
+
+    def gather(self, j: int):
+        self.gather_graph.replay()
+        return self.step.data, self.step.pos
+
+    def post(self, logits, data) -> None:
+        self.logits.copy_(logits)
+        self.post_graph.replay()
+
+    def end(self, nsteps: int, dec) -> torch.Tensor:
+        if dec is not None:
+            states, ptr, _ = self.coder
+            dec.states[: states.shape[0]].copy_(states)
+            dec.ptr.copy_(ptr)
+        return self.out[:nsteps].clone()

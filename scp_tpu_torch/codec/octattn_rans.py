@@ -56,13 +56,14 @@ def active_count(n: int, csz: int, j: int) -> int:
     return -(-(n - j) // csz)
 
 
-def decode_step_core(states, ptr, stream, rows, n_active: int):
+def decode_step_core(states, ptr, stream, rows, n_active):
     """Decode one position across the lanes.
 
     states (K,) int64, ptr () int64 byte offset, stream (B,) uint8 with
     ptr + 2K + 2 <= B, rows (lanes, 256) int with lanes <= K (missing lanes
-    are never active), n_active a host int.  Returns (syms (K,) int64,
-    states, ptr); inactive lanes decode 0 and keep their state."""
+    are never active), n_active a host int or an int64 device scalar.
+    Updates states and ptr in place and returns syms (K,) int64; inactive
+    lanes decode 0 and keep their state."""
     k = states.shape[0]
     r = rans._row_i32(rows)
     if r.shape[0] < k:
@@ -81,9 +82,9 @@ def decode_step_core(states, ptr, stream, rows, n_active: int):
     b1 = stream[offs + 1].to(torch.int64)
     x3 = torch.where(cnt >= 1, (x2 << 8) | b0, x2)
     x3 = torch.where(cnt == 2, (x3 << 8) | b1, x3)
-    states = torch.where(active, x3, states)
-    syms = torch.where(active, sym, 0)
-    return syms, states, ptr + cnt.sum()
+    states.copy_(torch.where(active, x3, states))
+    ptr.add_(cnt.sum())
+    return torch.where(active, sym, 0)
 
 
 def _encode_level(states, sf, n: int, csz: int):
@@ -214,7 +215,6 @@ class OctRansDecoder:
 
     def step(self, rows: torch.Tensor, n_active: int) -> torch.Tensor:
         """rows (lanes, 256) on the device; returns (K,) int64 device
-        symbols (inactive lanes 0)."""
-        syms, self.states, self.ptr = decode_step_core(
-            self.states, self.ptr, self.stream, rows, n_active)
-        return syms
+        symbols (inactive lanes 0).  The states and pointer are updated in
+        place."""
+        return decode_step_core(self.states, self.ptr, self.stream, rows, n_active)

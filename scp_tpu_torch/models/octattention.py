@@ -39,15 +39,20 @@ global batch (scp_tpu draws over its batch-sharded global array).  Eval
 mode, p = 0, `decode_step` and `decode_insert` never
 drop, so serving computes what it computed without dropout.
 
-The attention is plain PyTorch: scp_tpu computes it with einsums and
-softmax, not with a Pallas kernel, so this module launches no kernel of
-its own.
+The full-window attention is plain PyTorch: scp_tpu computes it with
+einsums and softmax, not with a Pallas kernel.  The KV-cache step's cached
+attention is ops/cached_attn.py: on a CUDA model a hand-written kernel that
+reads the cache length from device memory, on the CPU the step's batched
+products as ever.  On a CUDA model decode_step and decode_insert replay
+CUDA graphs captured per lane count at first use (StepGraphs): a replay
+in place of one launch per operation.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +60,9 @@ from torch import nn
 
 from scp_tpu_torch import resolve_device
 from scp_tpu_torch.models.layers import Dense, LayerNorm, sinusoidal_position_table
+from scp_tpu_torch.ops import cached_attn
+from scp_tpu_torch.utils import profiling
+from scp_tpu_torch.utils.cuda_graphs import capture
 
 
 def _identity(x):
@@ -144,30 +152,20 @@ class DualStreamLayer(nn.Module):
 
     # -- one position over the lanes -------------------------------------------
 
-    def _attend_cached(self, q, k_self, v_self, k_cache, v_cache, length: int):
+    def _attend_cached(self, q, k_self, v_self, k_cache, v_cache, length):
         """q, k_self, v_self (lanes, D) against the first `length` cached rows
-        of k_cache / v_cache (lanes, h, W, hd), plus the self slot."""
-        lanes = q.shape[0]
-        h, hd = self.num_heads, self.head_dim
-        scale = math.sqrt(hd)
-        qh = q.view(lanes * h, 1, hd)
-        kh = k_cache[:, :, :length].reshape(lanes * h, length, hd)
-        vh = v_cache[:, :, :length].reshape(lanes * h, length, hd)
-        scores = torch.bmm(qh, kh.transpose(1, 2)).float() / scale  # (lanes*h, 1, length)
-        diag = torch.bmm(qh, k_self.view(lanes * h, hd, 1)).float() / scale
-        weights = torch.softmax(torch.cat([scores, diag], dim=-1), dim=-1).to(self.dtype)
-        out = torch.bmm(weights[..., :length], vh)
-        out = out + weights[..., length:] * v_self.view(lanes * h, 1, hd)
-        return out.view(lanes, self.d_model)
+        of k_cache / v_cache (lanes, h, W, hd), plus the self slot.  `length`
+        is a host int or an int64 device scalar (a captured step's)."""
+        return cached_attn.cached_attention(q, k_self, v_self, k_cache, v_cache, length)
 
-    def step_unknown(self, u, k_cache, v_cache, length: int):
+    def step_unknown(self, u, k_cache, v_cache, length):
         q = self.attn.query(u)
         out = self._attend_cached(q, self.attn.key(u), self.attn.value(u), k_cache, v_cache,
                                   length)
         h1 = self.norm1(u + out)
         return self.norm2(h1 + self._ffn(h1)).to(self.dtype), q
 
-    def step_known(self, e, q, k_cache, v_cache, length: int):
+    def step_known(self, e, q, k_cache, v_cache, length):
         """The known stream attends with the unknown stream's query `q`."""
         k_e, v_e = self.attn.key(e), self.attn.value(e)
         out = self._attend_cached(q, k_e, v_e, k_cache, v_cache, length)
@@ -228,6 +226,8 @@ class OctAttention(nn.Module):
         self.decoder1 = Dense(self.embed_dim, token_num, dtype=torch.float32)
         pe = torch.from_numpy(sinusoidal_position_table(context_size, self.embed_dim))
         self.register_buffer("pe", pe, persistent=False)
+        self._graphs: dict = {}  # lane count -> StepGraphs (CUDA models)
+        self.step_replays = 0  # decode_step calls served by a graph replay
         self.eval()
         self.to(resolve_device(device))
 
@@ -325,18 +325,14 @@ class OctAttention(nn.Module):
         return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
 
-    def _position(self, x, length: int):
+    def _position(self, x, length):
         if self.pos_embed:
-            x = x + self.pe[length].to(self.dtype)
+            pe = (self.pe.index_select(0, length.view(1)) if isinstance(length, torch.Tensor)
+                  else self.pe[length])
+            x = x + pe.to(self.dtype)
         return x
 
-    @torch.no_grad()
-    def decode_step(self, data_t, pos_t, cache, length: int):
-        """Predict window position `length` of every lane.
-
-        data_t (lanes, K, 3) with the own occupancy arbitrary (masked),
-        pos_t (lanes, K, 3).  Returns (logits (lanes, 255) f32,
-        qs (layers, lanes, D)); qs feeds decode_insert."""
+    def _step(self, data_t, pos_t, cache, length):
         u = self._position(self._tokens(data_t, pos_t, unknown=True), length)
         qs = []
         for li, layer in enumerate(self.layers):
@@ -344,15 +340,170 @@ class OctAttention(nn.Module):
             qs.append(q)
         return self.decoder1(F.relu(self.decoder0(u))), torch.stack(qs)
 
+    def _insert(self, data_t, pos_t, cache, length, qs):
+        lanes = data_t.shape[0]
+        e = self._position(self._tokens(data_t, pos_t, unknown=False), length)
+        last = len(self.layer_names) - 1
+        for li, layer in enumerate(self.layers):
+            kc, vc = cache["k"][li], cache["v"][li]
+            if li == last:  # the known stream past the last layer feeds nothing
+                k_e, v_e = layer.attn.key(e), layer.attn.value(e)
+            else:
+                e, k_e, v_e = layer.step_known(e, qs[li], kc, vc, length)
+            k_e = k_e.view(lanes, self.num_heads, -1)
+            v_e = v_e.view(lanes, self.num_heads, -1)
+            if isinstance(length, torch.Tensor):
+                kc.index_copy_(2, length.view(1), k_e[:, :, None])
+                vc.index_copy_(2, length.view(1), v_e[:, :, None])
+            else:
+                kc[:, :, length] = k_e
+                vc[:, :, length] = v_e
+        return cache
+
+    def step_graphs(self, lanes: int) -> "StepGraphs":
+        """The captured step and insert of `lanes` lanes (CUDA models only),
+        captured at first use."""
+        g = self._graphs.get(lanes)
+        if g is None:
+            g = self._graphs[lanes] = StepGraphs(self, lanes)
+        return g
+
+    def _graphs_for(self, data_t, pos_t, cache):
+        """The lane count's graphs, where the call is one they serve: a CUDA
+        model, inputs (lanes, K, 3) of integer data and f32 positions on its
+        device, and caches of init_cache's shape and dtype."""
+        if self.device.type != "cuda":
+            return None
+        lanes = data_t.shape[0]
+        k, v = cache["k"], cache["v"]
+        want = (self.num_layers, lanes, self.num_heads, self.context_size,
+                self.embed_dim // self.num_heads)
+        if (tuple(data_t.shape) != (lanes, self.ancestors, 3) or pos_t.shape != data_t.shape
+                or data_t.dtype not in (torch.int32, torch.int64)
+                or pos_t.dtype != torch.float32 or data_t.device != self.device
+                or pos_t.device != self.device or tuple(k.shape) != want
+                or tuple(v.shape) != want or k.dtype != self.dtype or v.dtype != self.dtype
+                or k.device != self.device or v.device != self.device):
+            return None
+        return self.step_graphs(lanes)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._graphs = {}  # moved or recast weights: the graphs read the old ones
+        return super()._apply(fn, *args, **kwargs)
+
+    @torch.no_grad()
+    def decode_step(self, data_t, pos_t, cache, length: int):
+        """Predict window position `length` of every lane.
+
+        data_t (lanes, K, 3) with the own occupancy arbitrary (masked),
+        pos_t (lanes, K, 3).  Returns (logits (lanes, 255) f32,
+        qs (layers, lanes, D)); qs feeds decode_insert.  On a CUDA model the
+        step is a replay of the lane count's graph, and the returned tensors
+        are the caller's own."""
+        g = self._graphs_for(data_t, pos_t, cache)
+        if g is None:
+            return self._step(data_t, pos_t, cache, length)
+        g.feed(data_t, pos_t, cache, length)
+        g.replay_step()
+        self.step_replays += 1
+        return g.logits.clone(), g.returned(g.qs.clone())
+
     @torch.no_grad()
     def decode_insert(self, data_t, pos_t, cache, length: int, qs):
         """Write position `length` (its occupancy now known) into the
         caches, in place; returns `cache`."""
-        lanes = data_t.shape[0]
-        e = self._position(self._tokens(data_t, pos_t, unknown=False), length)
-        for li, layer in enumerate(self.layers):
-            kc, vc = cache["k"][li], cache["v"][li]
-            e, k_e, v_e = layer.step_known(e, qs[li], kc, vc, length)
-            kc[:, :, length] = k_e.view(lanes, self.num_heads, -1)
-            vc[:, :, length] = v_e.view(lanes, self.num_heads, -1)
+        g = self._graphs_for(data_t, pos_t, cache)
+        if g is None:
+            return self._insert(data_t, pos_t, cache, length, qs)
+        g.feed(data_t, pos_t, cache, length, qs)
+        g.replay_insert()
+        g.write_back(cache, length)
         return cache
+
+
+class StepGraphs:
+    """decode_step and decode_insert of one lane count, captured as CUDA
+    graphs over static buffers: the inputs, the position (an int64 device
+    scalar the cached attention reads), the KV caches and the step's qs.
+
+    A caller that steps in the static caches themselves (own_cache(), as
+    the codec's level loop does) has its inserts land there directly.  For
+    any other cache a call copies in what differs from the last: inputs
+    that are other tensors, a position that changed, a cache that is not
+    the one mirrored (another tensor, or one changed in place since: its
+    version counter moved); after an insert the new cache row is written
+    back to the caller's cache, so it stays the caller's in-place truth.
+    qs passed back as decode_step returned it, unchanged, is already in
+    place."""
+
+    def __init__(self, model: OctAttention, lanes: int):
+        dev = model.device
+        with torch.cuda.device(dev):
+            shape = (lanes, model.ancestors, 3)
+            self.data = torch.zeros(shape, dtype=torch.int32, device=dev)
+            self.pos = torch.zeros(shape, dtype=torch.float32, device=dev)
+            self.length = torch.zeros((), dtype=torch.int64, device=dev)
+            self.length_value = 0
+            self.cache = model.init_cache(lanes)
+            self.mirror = None  # (weakref of the caller's k, v, their versions)
+            self.last_qs = None  # (the qs decode_step returned, its version)
+            calls = cached_attn.cached_attention.captured
+            self.step, (self.logits, self.qs) = capture(
+                lambda: model._step(self.data, self.pos, self.cache, self.length))
+            self.step_calls = cached_attn.cached_attention.captured - calls
+            calls = cached_attn.cached_attention.captured
+            self.insert, _ = capture(
+                lambda: model._insert(self.data, self.pos, self.cache, self.length, self.qs))
+            self.insert_calls = cached_attn.cached_attention.captured - calls
+        profiling.count("octattn.graph_captures", 2)
+
+    def own_cache(self) -> dict:
+        """The static caches, zeroed as init_cache's, for a caller that
+        steps in them: its inserts land in them with no copy either way."""
+        self.cache["k"].zero_()
+        self.cache["v"].zero_()
+        self.mirror = None  # they no longer mirror another caller's cache
+        return dict(self.cache)
+
+    def replay_step(self) -> None:
+        self.step.replay()
+        cached_attn.replayed(self.step_calls)
+
+    def replay_insert(self) -> None:
+        self.insert.replay()
+        cached_attn.replayed(self.insert_calls)
+
+    def returned(self, qs):
+        self.last_qs = (qs, qs._version)
+        return qs
+
+    def _is_static(self, cache) -> bool:
+        return cache["k"] is self.cache["k"] and cache["v"] is self.cache["v"]
+
+    def feed(self, data_t, pos_t, cache, length: int, qs=None) -> None:
+        if data_t is not self.data:
+            self.data.copy_(data_t)
+        if pos_t is not self.pos:
+            self.pos.copy_(pos_t)
+        if length != self.length_value:
+            self.length.fill_(length)
+            self.length_value = length
+        k, v = cache["k"], cache["v"]
+        m = self.mirror
+        if not self._is_static(cache) and (
+                m is None or m[0]() is not k or m[1]() is not v
+                or m[2] != (k._version, v._version)):
+            self.cache["k"].copy_(k)
+            self.cache["v"].copy_(v)
+            self.mirror = (weakref.ref(k), weakref.ref(v), (k._version, v._version))
+        if qs is not None and not (self.last_qs is not None and qs is self.last_qs[0]
+                                   and qs._version == self.last_qs[1]):
+            self.qs.copy_(qs)
+
+    def write_back(self, cache, length: int) -> None:
+        if self._is_static(cache):
+            return
+        k, v = cache["k"], cache["v"]
+        k[:, :, :, length] = self.cache["k"][:, :, :, length]
+        v[:, :, :, length] = self.cache["v"][:, :, :, length]
+        self.mirror = (weakref.ref(k), weakref.ref(v), (k._version, v._version))

@@ -27,7 +27,8 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("mlp.cu", "swin_attn.cu", "knn_topk.cu", "window_attn.cu", "rans.cu")
+SOURCES = ("mlp.cu", "swin_attn.cu", "knn_topk.cu", "window_attn.cu", "rans.cu",
+           "cached_attn.cu")
 # -Xptxas -v: each kernel's registers, shared memory and spills go to the
 # build log beside the library (ptxas_report)
 FLAGS = ["-shared", "-Xcompiler", "-fPIC", "-gencode=arch=compute_90a,code=sm_90a", "-O3",
@@ -53,6 +54,9 @@ _SIGNATURES = {
     "rans.cu": {
         "scp_rans_decode_group": [_P, _L, _L, _P, _L, _P, _P, _P, _P],
         "scp_rans_encode": [_P, _I, _P, _L, _P, _P],
+    },
+    "cached_attn.cu": {
+        "scp_cached_attn": [_P] * 9 + [_L] + [_I] * 6 + [_F, _I, _P],
     },
 }
 # the element types the Swin kernels (A, B, C, E) take, and the flag that

@@ -9,7 +9,7 @@ Several classes: repeat --points/--levels pairs (`--points 120000 60000
 
 The port's persistent cache is its build directory
 (`utils.env.enable_compilation_cache()`, `scp_tpu_torch/_build/`): the
-five nvcc kernel libraries (`ops/_cuda.py::build_all`, on the card only)
+six nvcc kernel libraries (`ops/_cuda.py::build_all`, on the card only)
 and the g++ native library, each named by a hash of its sources.  This
 tool builds whatever is missing there and says which libraries it built
 cold and which it reused.  Unlike XLA's cache, a warm build directory

@@ -37,10 +37,14 @@ The spans and counters the port opens, and what each is for:
   encoded on the card);
   octattn.encode, octattn.decode (OctAttentionCodec.encode_incremental_into
   / decode_incremental_rans, one per direction), octattn.level (each level's
-  step loop of the rans schedule), octattn.fetch (each blocking
+  step loop of the rans schedule, ending with a device sync: the loop's
+  device time, which sets its pace on the card), octattn.fetch (each blocking
   device-to-host read of that schedule: a level's symbols, finish()'s
-  three); the counters octattn.positions (lane-wide steps) and
-  octattn.lanes (lanes stepped, padded lanes included);
+  three); the counters octattn.positions (lane-wide steps),
+  octattn.lanes (lanes stepped, padded lanes included),
+  octattn.graph_replays (positions whose model step ran as a CUDA graph
+  replay; never counted on the CPU) and octattn.graph_captures (graphs
+  captured: the model's step and insert, the codec's gather and post);
   train.load_wait (the consumer's wait in train/data.py:prefetch),
   train.forward, train.backward, train.allreduce, train.update
   (Trainer.train_step);
@@ -169,6 +173,11 @@ def count(name: str, n: int = 1) -> None:
         return
     c = _COUNTERS.setdefault(rec.unit, {})
     c[name] = c.get(name, 0) + n
+
+
+def on() -> bool:
+    """Whether recording is on (a caller may then pay for a truer span)."""
+    return _ON is not None
 
 
 def unit(uid):
